@@ -1,430 +1,190 @@
-"""North-star benchmark: SIFT1M-scale flat ADC search QPS/chip at recall
-parity (BASELINE.json configs 2/4).
+"""Benchmark of the search path on one GPU: SIFT1M-shaped flat ADC at
+recall parity (BASELINE.json configs 2/4), flat SQ (config 1) and IVF-ADC.
+
+    python bench.py          # or: python -m cvt_tpu.cli bench
 
 Pipeline: train OPQ (M=8, K=256 -> 64-bit codes) on a sample, encode a
-1M-vector database, then measure steady-state QPS of the fused Pallas
-int8-decode scan (FlatADCIndex, k=10), and recall@1/@10 against (a) the
-exact float scan (absolute recall) and (b) the REFERENCE ALGORITHM at the
-same code budget — an INDEPENDENT full-database pure-XLA f32 LUT-ADC
-scan over the same OPQ codes (the role of opq/src/IVFOPQ.cpp:279-309).
-BASELINE.md requires (b)'s recall delta <= 0.5 pt, measured on
-N_REC=2048 queries (±~1 pt binomial noise at recall ~0.2).
+1M-vector database through FlatADCIndex.add, then time every search
+path through its public API, each against the plain XLA route of the
+same scan (cvt_tpu.ops.backend), at B=8192 and B=64 (k=10):
 
-Timing: some remote-dispatch TPU backends' block_until_ready does NOT block, so
-steady-state latency is measured with device-chained execution — ITERS
-search calls inside one jitted lax.scan with a data-dependent carry, one
-host fetch at the end — minus a separately measured per-dispatch launch
-overhead (cvt_tpu.utils.profile.chained_time).
+  * flat ADC: FlatADCIndex.search (fast and exact=True) and the packed
+    scan alone (cvt_tpu.ops.pallas.adc_scan.packed_keys);
+  * flat SQ:  FlatSQIndex.search_fast at d=64 and d=128;
+  * IVF-ADC:  IVFADCIndex.search_fast at 8192 cells, m=16, nprobe=16,
+    B=256, and the probed XLA engine (IVFADCIndex.search).
 
-vs_baseline anchor (100k QPS "H100-class", BASELINE.md's >=5x target):
-derived speed-of-light for the same algorithm on an H100 SXM. Batched
-flat 64-bit ADC over 1M codes is compute-bound: either the LUT-gather
-formulation (B*N*M = 33.6e9 shared-memory gather+adds per 4096-query
-batch; ~5-10 T gather-ops/s realistic on 132 SMs -> 3.4-6.7 ms) or the
-tensor-core decode-first formulation (2*B*N*D = 4.3 TFLOP/batch at <=50%
-MFU of 990 bf16 TFLOP/s -> >=8.7 ms). Both put an optimized H100
-implementation at 0.5-1.2M QPS speed-of-light; production faiss-GPU-style
-LUT kernels historically reach 10-30% of SOL (Johnson et al. 2017 report
-IVF-PQ throughput far below SOL), giving the ~100k QPS working anchor.
-The >=5x target therefore means "run at roughly H100 speed-of-light on a
-v5e chip"; vs_baseline = measured_qps / 100_000.
+Recall@1/@10 are measured against exact float ground truth (FlatIndex,
+Precision.HIGHEST) and against the independent float32 LUT-ADC
+reference over the same codes (cvt_tpu.index.reference) — BASELINE.md's
+parity bar is 0.5 pt of recall@1, on the rows of the B=8192 batch.
+
+Timing: the median of REPS calls, each ended by jax.block_until_ready,
+after one warm-up call that compiles. The output names the device and
+the card's name and power limit; without a GPU the script exits 2.
 """
 
 import json
 import os
+import subprocess
 import sys
 import time
 
 import numpy as np
 
-H100_CLASS_BASELINE_QPS = 100_000.0
-
 N_DB = int(os.environ.get("BENCH_N", 1_000_000))
 N_TRAIN = 131_072
 N_QUERIES = 8192
 K = 10
-BATCH = int(os.environ.get("BENCH_BATCH", 8192))
 M, KSUB = 8, 256
-ITERS = int(os.environ.get("BENCH_ITERS", 32))
-N_REC = int(os.environ.get("BENCH_NREC", 2048))
+REPS = int(os.environ.get("BENCH_REPS", 5))
+N_REC = int(os.environ.get("BENCH_NREC", 8192))
+
+
+def timed_ms(fn, *args) -> float:
+    """Median wall time of fn(*args) in ms, after a compiling warm-up."""
+    import jax
+    jax.block_until_ready(fn(*args))
+    times = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        jax.block_until_ready(fn(*args))
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
 
 
 def main():
     import jax
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        print(f"bench.py measures the GPU; JAX found {dev.platform}",
+              file=sys.stderr)
+        return 2
+    from cvt_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
-    from cvt_tpu.index import FlatADCIndex, FlatIndex
+    from cvt_tpu.index import FlatADCIndex, FlatIndex, FlatSQIndex
+    from cvt_tpu.index import IVFADCIndex
+    from cvt_tpu.index.reference import lut_adc_topk
     from cvt_tpu.io.datasets import load_sift1m, synthetic_sift
-    from cvt_tpu.quant import OPQ
+    from cvt_tpu.ops.linalg import l2_normalize
+    from cvt_tpu.ops.pallas import adc_scan
+    from cvt_tpu.quant import OPQ, ScalarQuantizer
     from cvt_tpu.utils import recall_at_k
-    from cvt_tpu.utils.profile import measure_launch_overhead
 
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
     t_start = time.time()
     data = load_sift1m()
     if data is not None:
-        base, queries, gt = data
-        base = base[:N_DB]
-        queries = queries[:N_QUERIES]
-        gt1 = gt[:N_QUERIES, :1]
+        base, queries, _ = data
+        base, queries = base[:N_DB], queries[:N_QUERIES]
         source = "sift1m"
     else:
         # fresh-draw queries (independent of base points): the honest
         # recall regime, like SIFT1M's held-out query set
         base, queries = synthetic_sift(N_DB, 128, n_queries=N_QUERIES,
                                        seed=0, query_mode="fresh")
-        gt1 = None
-        source = ("synthetic-fresh (real SIFT1M not stageable: "
-                  "zero-egress environment, texmex download blocked)")
+        source = "synthetic-fresh"
+    n = base.shape[0]
+    out = {"device": {"platform": dev.platform, "kind": dev.device_kind,
+                      "count": len(jax.devices())},
+           "card": card, "data": source, "n_db": n, "k": K,
+           "code_bits": M * 8, "reps": REPS}
 
-    # ---- train OPQ on a sample -----------------------------------------
-    key = jax.random.key(0)
-    sample = base[:N_TRAIN]
-    opq = OPQ.train(key, sample, m=M, k=KSUB, opq_iters=4, kmeans_iters=6,
-                    final_kmeans_iters=12)
-
-    # ---- encode + build index (codes encoded/sec) ----------------------
+    opq = OPQ.train(jax.random.key(0), base[:N_TRAIN], m=M, k=KSUB,
+                    opq_iters=4, kmeans_iters=6, final_kmeans_iters=12)
     idx = FlatADCIndex(opq)
-    # warm BOTH fused encode executables (compile time is not
-    # throughput): the single-chunk path and the device-resident
-    # multi-chunk lax.map path used by the codes_per_sec measurement
-    # (round 2 forgot the latter, so its measured "throughput" was
-    # mostly XLA compile time)
-    warm = FlatADCIndex(opq)
-    warm.add(base[:FlatADCIndex.ENC_CHUNK])
-    warm._materialize()
-    float(jnp.sum(warm._dec_sq[-8:]))
-    del warm
-    # warm at EXACTLY the measurement shape (4 chunks = 524288): lax.map
-    # executables are shape-specialized, so a 2-chunk warm would leave
-    # the 4-chunk measurement paying full compile
-    warm2 = FlatADCIndex(opq)
-    warm2.add(jax.device_put(jnp.asarray(
-        base[:4 * FlatADCIndex.ENC_CHUNK], jnp.float32)))
-    warm2._materialize()
-    float(jnp.sum(warm2._dec_sq[-8:]))
-    del warm2
-    # end-to-end ingest: host floats -> device codes (includes the
-    # host->device staging; on a remote-dispatch backend that link can be ~50 MB/s and
-    # dominates — a real TPU host feeds over PCIe)
-    t0 = time.time()
-    for s in range(0, base.shape[0], FlatADCIndex.ENC_CHUNK):
-        idx.add(base[s:s + FlatADCIndex.ENC_CHUNK])
-    idx._materialize()
-    # force completion with a data-dependent fetch (block_until_ready is
-    # unreliable on remote-dispatch backends)
-    float(jnp.sum(idx._dec_sq[-8:]))
-    ingest_per_sec = base.shape[0] / (time.time() - t0)
-    # encoder throughput proper: device-resident floats -> codes
-    base_dev = jax.device_put(jnp.asarray(base[:min(len(base), 524288)],
-                                          jnp.float32))
-    float(base_dev[0, 0])
-    enc2 = FlatADCIndex(opq)
-    t0 = time.time()
-    enc2.add(base_dev)
-    enc2._materialize()
-    float(jnp.sum(enc2._dec_sq[-8:]))
-    codes_per_sec = base_dev.shape[0] / (time.time() - t0)
-    del enc2, base_dev
+    idx.add(base[:FlatADCIndex.ENC_CHUNK])            # compile the encoder
+    jax.block_until_ready(idx.search(queries[:64], K))
+    idx = FlatADCIndex(opq)
+    t0 = time.perf_counter()
+    idx.add(base)
+    jax.block_until_ready(idx.scan_operand())
+    out["ingest_codes_per_s"] = n / (time.perf_counter() - t0)
 
-    # ---- ground truth (exact float scan) for recall --------------------
+    # ---- flat ADC: the index path and the scan alone, both routes -------
+    dec, norm, srow = idx.scan_operand()
+    lanes = {}
+    for b in (8192, 64):
+        q = queries[:b]
+        qr = opq.rotate(q)
+        lane = {
+            "search_ms": timed_ms(lambda x: idx.search(x, K), q),
+            "search_exact_ms": timed_ms(
+                lambda x: idx.search(x, K, exact=True), q),
+        }
+        for route in ("pallas", "xla"):
+            lane[f"scan_{route}_ms"] = timed_ms(
+                lambda x: adc_scan.packed_keys(x, dec, norm, srow, n,
+                                               route=route), qr)
+            lane[f"search_{route}_ms"] = timed_ms(
+                lambda x: adc_scan.adc_search(x, dec, norm, srow, K, n,
+                                              route=route), qr)
+        lane["queries_per_s"] = b / lane["search_ms"] * 1e3
+        lanes[f"b{b}"] = lane
+    out["flat_adc"] = lanes
+
+    # ---- recall vs exact float ground truth and the f32 LUT reference --
     n_rec = min(N_REC, queries.shape[0])
-    if gt1 is None:
-        exact = FlatIndex(128, "l2", chunk=131_072)
-        exact.add(base)
-        gt_parts = []
-        for s in range(0, n_rec, 512):
-            _, gt_ids = exact.search(queries[s:s + 512], 1)
-            gt_parts.append(np.asarray(gt_ids))
-        gt1 = np.concatenate(gt_parts, axis=0)
-        del exact
+    exact = FlatIndex(128, "l2", chunk=131_072)
+    exact.add(base)
+    gt = np.concatenate([np.asarray(exact.search(queries[s:e], 1)[1])
+                         for s, e in ((s, min(s + 512, n_rec))
+                                      for s in range(0, n_rec, 512))])[:, 0]
+    del exact
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        ".bench_index.npz")
+    idx.save(path)
+    codes = jnp.asarray(np.load(path)["codes"])
+    os.remove(path)
+    rec = {}
+    # the first n_rec rows of the timed B=8192 searches (all by default)
+    q = queries[:8192]
+    for name, ids in (
+            ("fast", idx.search(q, K)[1]),
+            ("exact", idx.search(q, K, exact=True)[1]),
+            ("f32_lut_adc", lut_adc_topk(opq.rotate(queries[:n_rec]), codes,
+                                         opq.pq.codebooks, K)[1])):
+        ids = np.asarray(ids)[:n_rec]
+        rec[name] = {"recall_at_1": recall_at_k(ids, gt, k=1),
+                     "recall_at_10": recall_at_k(ids, gt, k=10)}
+    out["recall"] = rec
+    out["recall_parity_pt"] = (rec["f32_lut_adc"]["recall_at_1"]
+                               - rec["fast"]["recall_at_1"]) * 100
 
-    # ---- recall: production fast path vs reference f32 ADC -------------
-    _, ids_fast = idx.search(queries[:n_rec], K)
-    ids_fast = np.asarray(ids_fast)
-    r1 = recall_at_k(ids_fast, gt1[:n_rec, 0], k=1)
-    r10 = recall_at_k(ids_fast, gt1[:n_rec, 0], k=10)
-    # reference algorithm at identical code budget: INDEPENDENT pure-XLA
-    # full-database f32 LUT-ADC scan over the same codes (the role of
-    # opq/src/IVFOPQ.cpp:279-309) — NOT the exact=True rescore of
-    # int8-selected segments, which round 2's judge flagged as circular
-    from cvt_tpu.index.flat_adc import _adc_scan
-    idx._materialize()
-    n_total = idx.ntotal
-    ref_chunk = 16384
-    npad_ref = -(-n_total // ref_chunk) * ref_chunk
-    codes_ref_arr = idx._codes
-    dsq_ref = idx._dec_sq
-    if npad_ref != n_total:
-        codes_ref_arr = jnp.concatenate(
-            [codes_ref_arr, jnp.zeros((npad_ref - n_total, M), jnp.uint8)])
-        dsq_ref = jnp.concatenate(
-            [dsq_ref, jnp.zeros((npad_ref - n_total,), jnp.float32)])
-    ids_ref_parts = []
-    for s in range(0, n_rec, 1024):
-        qr_ref = idx._rotate(queries[s:min(s + 1024, n_rec)])
-        qsq_ref = jnp.sum(jnp.square(qr_ref), axis=-1)
-        _, ids_r = _adc_scan(qr_ref, qsq_ref, codes_ref_arr, dsq_ref,
-                             opq.pq.codebooks, K, ref_chunk, n_total)
-        ids_ref_parts.append(np.asarray(ids_r))
-    ids_ref = np.concatenate(ids_ref_parts, axis=0)
-    r1_ref = recall_at_k(ids_ref, gt1[:n_rec, 0], k=1)
-    r10_ref = recall_at_k(ids_ref, gt1[:n_rec, 0], k=10)
-
-    # ---- steady-state QPS (device-chained timing) -----------------------
-    from cvt_tpu.ops.pallas.adc_scan import adc_search
-    codes_t, cbt_q, srow, group = idx._pallas_arrays()
-    n = idx.ntotal
-    qpool = queries if queries.shape[0] >= BATCH else np.tile(
-        queries, (-(-BATCH // queries.shape[0]), 1))[:BATCH]
-    rng = np.random.default_rng(0)
-    stack = np.stack([qpool[rng.permutation(qpool.shape[0])[:BATCH]]
-                      for _ in range(ITERS)])
-    qr_stack = jnp.asarray(stack, jnp.float32)
-    if opq.rotation is not None:
-        qr_stack = jnp.einsum("ibd,de->ibe", qr_stack, opq.rotation)
-
-    def one_search(qb):
-        return adc_search(qb, None, idx._codes, idx._dec_sq,
-                          opq.pq.codebooks, K, n, codes_t=codes_t,
-                          cbt_q=cbt_q, srow=srow, group=group,
-                          interpret=False)
-
-    @jax.jit
-    def chained(qs):
-        def body(c, qb):
-            d, i = one_search(qb + c)    # carry -> input: serialize iters
-            # fold a tiny data-dependent term into the carry (not *0.0,
-            # which XLA could constant-fold away, breaking the chain)
-            return c + d[0, 0] * jnp.float32(1e-20), (d[0, 0], i[0, 0])
-        c, outs = jax.lax.scan(body, jnp.float32(0.0), qs)
-        return c, outs
-
-    overhead = measure_launch_overhead()
-    c, _ = chained(qr_stack)             # warmup/compile
-    float(c)
-    t0 = time.time()
-    c, _ = chained(qr_stack)
-    float(c)                             # data-dependent fetch
-    dt = max(time.time() - t0 - overhead, 1e-9) / ITERS
-    qps = BATCH / dt
-
-    # ---- decoded-cache mode (opt-in memory/speed trade) -----------------
-    from cvt_tpu.ops.pallas.adc_scan import adc_search_cached
-    idx.build_decoded_cache()
-
-    def one_cached(qb):
-        return adc_search_cached(qb, idx._dec8_t, idx._norm_col,
-                                 idx._srow_cache, K, n)
-
-    @jax.jit
-    def chained_cached(qs):
-        def body(c, qb):
-            d, i = one_cached(qb + c)
-            return c + d[0, 0] * jnp.float32(1e-20), (d[0, 0], i[0, 0])
-        c, outs = jax.lax.scan(body, jnp.float32(0.0), qs)
-        return c, outs
-
-    c2, _ = chained_cached(qr_stack)
-    float(c2)
-    t0 = time.time()
-    c2, _ = chained_cached(qr_stack)
-    float(c2)
-    dt_cached = max(time.time() - t0 - overhead, 1e-9) / ITERS
-    qps_cached = BATCH / dt_cached
-
-    # ---- exact mode (f32 rescore of winning segments): QPS + recall ----
-    # (VERDICT r4 item 3: the exact path's operating numbers were absent
-    # from every bench table)
-    def one_exact(qb):
-        return adc_search(qb, None, idx._codes, idx._dec_sq,
-                          opq.pq.codebooks, K, n, codes_t=codes_t,
-                          cbt_q=cbt_q, srow=srow, group=group,
-                          exact=True, interpret=False)
-
-    @jax.jit
-    def chained_exact(qs):
-        def body(c, qb):
-            d, i = one_exact(qb + c)
-            return c + d[0, 0] * jnp.float32(1e-20), (d[0, 0], i[0, 0])
-        c, outs = jax.lax.scan(body, jnp.float32(0.0), qs)
-        return c, outs
-
-    c3, _ = chained_exact(qr_stack)
-    float(c3)
-    t0 = time.time()
-    c3, _ = chained_exact(qr_stack)
-    float(c3)
-    dt_exact = max(time.time() - t0 - overhead, 1e-9) / ITERS
-    qps_exact = BATCH / dt_exact
-    _, ids_exact = idx.search(queries[:n_rec], K, exact=True)
-    ids_exact = np.asarray(ids_exact)
-    r1_exact = recall_at_k(ids_exact, gt1[:n_rec, 0], k=1)
-    r10_exact = recall_at_k(ids_exact, gt1[:n_rec, 0], k=10)
-
-    # ---- roofline --------------------------------------------------------
-    npad = codes_t.shape[1]
-    d_dim = 128
-    flops_score = 2.0 * npad * d_dim * BATCH            # bf16 MXU
-    flops_decode = 2.0 * npad * d_dim * (group * KSUB)  # int8 MXU
-    tflops = (flops_score + flops_decode) / dt / 1e12
-
-    # ---- config-1 lane: int8 SQ flat scan (sq_train.cpp:42-45 operating
-    # point: d=64, inputs L2-normalized; also measured at d=128) ---------
-    from cvt_tpu.index.flat_sq import FlatSQIndex
-    from cvt_tpu.ops.linalg import l2_normalize
-    from cvt_tpu.quant.sq import ScalarQuantizer
+    # ---- flat SQ (sq_train.cpp:42-45: d=64, L2-normalized; also d=128) --
     sq_out = {}
     for d_sq in (64, 128):
         base_sq = np.asarray(l2_normalize(jnp.asarray(base[:, :d_sq])))
-        q_sq_arr = np.asarray(l2_normalize(jnp.asarray(
-            queries[:, :d_sq])))
-        sq = ScalarQuantizer.train(base_sq[:N_TRAIN], l2norm=False)
-        sqi = FlatSQIndex(sq, chunk=131_072)
-        for s in range(0, len(base_sq), 262144):
-            sqi.add(base_sq[s:s + 262144])
-        # recall vs exact float GT on the normalized data
-        exact_sq = FlatIndex(d_sq, "l2", chunk=131_072)
-        exact_sq.add(base_sq)
-        gt_sq_parts = []
-        for s in range(0, n_rec, 512):
-            _, g = exact_sq.search(q_sq_arr[s:s + 512], 1)
-            gt_sq_parts.append(np.asarray(g))
-        gt_sq = np.concatenate(gt_sq_parts)[:, 0]
-        del exact_sq
-        _, ids_sq = sqi.search_fast(q_sq_arr[:n_rec], K)
-        r10_sq = recall_at_k(np.asarray(ids_sq), gt_sq, k=10)
-        r1_sq = recall_at_k(np.asarray(ids_sq), gt_sq, k=1)
-        # chained QPS at the production batch (search_fast = the Pallas
-        # packed scan; big arrays as args, not closure constants)
-        qsq_pool = np.tile(q_sq_arr, (-(-BATCH // len(q_sq_arr)), 1)
-                           )[:BATCH]
-        sq_stack = jnp.asarray(np.stack([qsq_pool] * 8), jnp.float32)
-        from cvt_tpu.ops.pallas.adc_scan import adc_search_cached
-        jax.block_until_ready(sqi.search_fast(q_sq_arr[:128], K))
-        b_vec = sqi.sq.bias + 128.0 * sqi.sq.scale
-        n_sq = sqi.ntotal
-
-        def one_sq(qb, dec8_t, norm_col, srow_sq):
-            d_, i_ = adc_search_cached(qb - b_vec[None, :], dec8_t,
-                                       norm_col, srow_sq, K, n_sq)
-            return d_[:, 0]
-
-        from cvt_tpu.utils.profile import chained_time
-        dt_sq = chained_time(one_sq, sq_stack,
-                             consts=(sqi._dec8_t, sqi._norm_col,
-                                     sqi.sq.scale),
-                             launch_overhead_s=overhead)
-        sq_out[d_sq] = {"qps": round(BATCH / dt_sq, 1),
-                        "recall_at_1": round(r1_sq, 4),
-                        "recall_at_10": round(r10_sq, 4)}
+        q_sq = np.asarray(l2_normalize(jnp.asarray(queries[:, :d_sq])))
+        sqi = FlatSQIndex(ScalarQuantizer.train(base_sq[:N_TRAIN],
+                                                l2norm=False), chunk=131_072)
+        for s in range(0, n, 262_144):
+            sqi.add(base_sq[s:s + 262_144])
+        sq_out[f"d{d_sq}"] = {
+            "search_fast_ms": timed_ms(lambda x: sqi.search_fast(x, K), q_sq),
+            "search_fast_xla_ms": timed_ms(
+                lambda x: sqi.search_fast(x, K, impl="xla"), q_sq),
+            "search_bf16_ms": timed_ms(lambda x: sqi.search(x, K), q_sq)}
         del sqi
+    out["flat_sq_b8192"] = sq_out
 
-    # ---- recall-parity robustness sweep: >=3 distributions x 2 seeds ---
-    # (VERDICT r3 item 6) at reduced N — parity measures the int8 engine
-    # against the independent f32 LUT engine at identical codes, which
-    # does not need the full 1M rows
-    # binomial noise at nq_sw=2048, r~0.5 is +-1.1 pt (1 sigma); spreads
-    # inside ~2 pt are sampling noise, not engine divergence
-    parity_sweep = {}
-    n_sw, nq_sw = 131_072, 2048
-    for di, dist in enumerate(("isotropic", "gmm", "correlated")):
-        for seed in (0, 1):
-            rs = np.random.default_rng(seed + 100 * di)
-            if dist == "isotropic":
-                bs = rs.normal(0, 30, (n_sw + nq_sw, 128))
-            elif dist == "gmm":
-                cc = rs.gamma(1.2, 24.0, (4096, 128))
-                bs = cc[rs.integers(0, 4096, n_sw + nq_sw)] \
-                    + rs.normal(0, 12, (n_sw + nq_sw, 128))
-            else:                       # correlated: low-rank + noise
-                w = rs.normal(size=(16, 128))
-                bs = rs.normal(size=(n_sw + nq_sw, 16)) @ w * 8 \
-                    + rs.normal(0, 4, (n_sw + nq_sw, 128))
-            bs = np.clip(bs, 0, 255).astype(np.float32) if dist != \
-                "correlated" else bs.astype(np.float32)
-            b_sw, q_sw = bs[:n_sw], bs[n_sw:]
-            opq_sw = OPQ.train(jax.random.key(seed), b_sw[:65536], m=M,
-                               k=KSUB, opq_iters=2, kmeans_iters=3,
-                               final_kmeans_iters=4)
-            idx_sw = FlatADCIndex(opq_sw)
-            idx_sw.add(b_sw)
-            idx_sw._materialize()
-            ex = FlatIndex(128, "l2", chunk=131_072)
-            ex.add(b_sw)
-            _, g_sw = ex.search(q_sw, 1)
-            g_sw = np.asarray(g_sw)[:, 0]
-            del ex
-            _, if_sw = idx_sw.search(q_sw, K)
-            r1f = recall_at_k(np.asarray(if_sw), g_sw, k=1)
-            qr_sw = idx_sw._rotate(q_sw)
-            _, ir_sw = _adc_scan(
-                qr_sw, jnp.sum(jnp.square(qr_sw), -1), idx_sw._codes,
-                idx_sw._dec_sq, opq_sw.pq.codebooks, K, 16384,
-                idx_sw.ntotal)
-            r1r = recall_at_k(np.asarray(ir_sw), g_sw, k=1)
-            parity_sweep[f"{dist}-s{seed}"] = round((r1r - r1f) * 100, 2)
-            del idx_sw
-    parity_spread = max(abs(v) for v in parity_sweep.values())
-
-    # ---- ingest pipelining: uint8 staging (SIFT is uint8 in the
-    # reference, visual_index.h:59) + async overlapped device_put -------
-    base_u8 = np.clip(np.rint(base[:524288]), 0, 255).astype(np.uint8)
-    enc3 = FlatADCIndex(opq)
-    # warm the u8 ingest path at chunk shape
-    enc3.add(jnp.asarray(base_u8[:FlatADCIndex.ENC_CHUNK],
-                         jnp.uint8).astype(jnp.float32))
-    enc3 = FlatADCIndex(opq)
-    t0 = time.time()
-    # stage ALL chunks first (async device_put overlaps the transfers
-    # with the encodes dispatched right behind them)
-    staged = [jax.device_put(base_u8[s:s + FlatADCIndex.ENC_CHUNK])
-              for s in range(0, len(base_u8), FlatADCIndex.ENC_CHUNK)]
-    for ch in staged:
-        enc3.add(ch.astype(jnp.float32))
-    enc3._materialize()
-    float(jnp.sum(enc3._dec_sq[-8:]))
-    ingest_u8_per_sec = len(base_u8) / (time.time() - t0)
-    del enc3, staged
-
-    print(json.dumps({
-        "metric": "sift1m_adc_qps_per_chip",
-        "value": round(qps, 1),
-        "unit": "qps",
-        "vs_baseline": round(qps / H100_CLASS_BASELINE_QPS, 3),
-        "recall_at_1": round(r1, 4),
-        "recall_at_10": round(r10, 4),
-        "recall_at_1_ref_f32_adc": round(r1_ref, 4),
-        "recall_at_10_ref_f32_adc": round(r10_ref, 4),
-        "recall_parity_pt": round((r1_ref - r1) * 100, 2),
-        # decoded-cache mode: same recall (bit-identical int8 scoring),
-        # 16x code bytes (128 MB at 1M x 64-bit) for a decode-free scan
-        "qps_decoded_cache": round(qps_cached, 1),
-        # exact=True: f32 rescore of winning segments (guaranteed exact
-        # top-k w.r.t. full-precision ADC scoring)
-        "qps_exact": round(qps_exact, 1),
-        "recall_at_1_exact": round(r1_exact, 4),
-        "recall_at_10_exact": round(r10_exact, 4),
-        "codes_per_sec": round(codes_per_sec, 1),
-        "ingest_codes_per_sec": round(ingest_per_sec, 1),
-        "ingest_codes_per_sec_u8": round(ingest_u8_per_sec, 1),
-        # config-1 lane (sq_train.cpp:42-45): int8 SQ flat scan
-        "sq_d64_qps": sq_out[64]["qps"],
-        "sq_d64_recall_at_1": sq_out[64]["recall_at_1"],
-        "sq_d64_recall_at_10": sq_out[64]["recall_at_10"],
-        "sq_d128_qps": sq_out[128]["qps"],
-        "sq_d128_recall_at_10": sq_out[128]["recall_at_10"],
-        # parity robustness: (f32-ADC ref recall@1 - fast recall@1) pt,
-        # 3 distributions x 2 seeds at N=262144
-        "parity_sweep_pt": parity_sweep,
-        "parity_spread_pt_max": parity_spread,
-        "tflops_effective": round(tflops, 1),
-        "launch_overhead_ms": round(overhead * 1e3, 2),
-        "n_db": int(base.shape[0]),
-        "batch": BATCH,
-        "code_bits": M * 8,
-        "data": source,
-        "ms_per_batch": round(dt * 1e3, 2),
-        "total_bench_s": round(time.time() - t_start, 1),
-    }))
+    # ---- IVF-ADC at the reference operating point (IVFOPQ.cpp:56-63) ---
+    ivf = IVFADCIndex(coarse_k=8192, m=16, k=256)
+    ivf.train(jax.random.key(0), base)
+    ivf.build(base)
+    q = queries[:256]
+    out["ivf_adc_b256_nprobe16"] = {
+        "search_fast_ms": timed_ms(lambda x: ivf.search_fast(x, K), q),
+        "search_fast_xla_ms": timed_ms(
+            lambda x: ivf.search_fast(x, K, impl="xla"), q),
+        "search_probed_xla_ms": timed_ms(lambda x: ivf.search(x, K), q)}
+    out["total_s"] = time.time() - t_start
+    print(json.dumps(out))
+    return 0
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""cvt-tpu: a TPU-native content-based image retrieval (CBIR) framework.
+"""cvt-tpu: a batched, accelerator-first content-based image retrieval (CBIR)
+framework in JAX.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capability surface of
 willard-yuan/cvt ("CVT, a Computer Vision Toolkit"): local-feature
@@ -8,19 +9,19 @@ flat ADC code scan, IVF-ADC), geometric verification / re-ranking
 (SVF, batched RANSAC, vote-and-verify), and applied subsystems
 (image-level retrieval, perceptual hash, AUC metrics).
 
-Design stance (TPU-first, not a port):
+Design stance (accelerator-first, not a port):
   * Everything is batch-first: where the reference loops over
     descriptors/images with SIMD+OpenMP+pthreads, we operate on dense
     [B, ...] arrays under jit.
-  * Distance scans are MXU matmuls. The reference's AVX inner-product
+  * Distance scans are matmuls. The reference's AVX inner-product
     kernels (brute_force_search/src/space_ip.hpp) become a single
     [B,D]x[D,N] contraction; its per-point ADC LUT-sum loop
-    (opq/src/IVFOPQ.cpp:300-309) becomes one-hot decode on the MXU
+    (opq/src/IVFOPQ.cpp:300-309) becomes one-hot decode as matmuls
     followed by an int8/bf16 score matmul fused with top-k.
   * Scale-out is a jax.sharding.Mesh + shard_map with XLA collectives
-    over ICI/DCN (the reference has no distributed layer at all).
-  * Pallas kernels cover what XLA fusion cannot: the fused
-    decode-scan-topk HBM streaming kernel, int8 asymmetric scans.
+    (the reference has no distributed layer at all).
+  * A Pallas kernel covers what XLA fusion cannot: the packed int8
+    segment scan that never writes the [N, B] score matrix.
 
 Subpackages:
   io        binary vector formats (fvecs/bvecs/ivecs + cvt's record format)

@@ -7,7 +7,7 @@ class score, softmax-free box offsets, then OpenCV NMSBoxes) and Python
 (ONNX); the framework capability is the DECODE + NMS pipeline, which
 here runs batched on device: decode is elementwise over the [B, H, W, C]
 head output, NMS is a fixed-iteration masked suppression loop (no
-dynamic-length boxes — TPU-friendly shapes with validity masks).
+dynamic-length boxes — static shapes with validity masks).
 """
 
 from __future__ import annotations
@@ -79,7 +79,7 @@ def _iou(a, b):
 @partial(jax.jit, static_argnames=("iou_threshold", "class_aware"))
 def nms(dets: Detections, *, iou_threshold: float = 0.35,
         class_aware: bool = True) -> Detections:
-    """Masked greedy NMS over fixed-size detection slots (the TPU-shaped
+    """Masked greedy NMS over fixed-size detection slots (the static-shape
     replacement for cv::dnn::NMSBoxes). Boxes must be sorted by score
     (decode_fastestdet emits them sorted)."""
 

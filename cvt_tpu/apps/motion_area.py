@@ -6,7 +6,7 @@ Reference: detection_and_tracking/pip_detection —
 :22-288): frame-difference motion masks accumulated over a clip, edges +
 Hough-style line accumulation to find the inner-video rectangle.
 
-TPU-native: the whole clip is one [T, H, W] tensor; difference masks,
+Batched design: the whole clip is one [T, H, W] tensor; difference masks,
 box blur, and the row/column projection profiles are batched reductions.
 Rectangle finding uses axis projections of the accumulated motion mask
 (rows/cols whose motion energy exceeds a fraction of the peak), which is

@@ -6,9 +6,9 @@ pHash.hpp:21-62), bits = coefficient > mean, popcount Hamming distance
 (:84-92), plus a "pure image" detector via dominant-gray-histogram ratio
 (:95-119).
 
-TPU-native: the DCT is two 32x32 matmuls with the DCT-II basis; hashing
+Batched design: the DCT is two 32x32 matmuls with the DCT-II basis; hashing
 is batched over [B, 32, 32] images. The 64-bit hash is stored as TWO
-uint32 words [B, 2] (JAX on TPU runs with 32-bit integers by default —
+uint32 words [B, 2] (JAX runs with 32-bit integers by default —
 a uint64 would silently truncate); Hamming distance is XOR + popcount
 summed over both words.
 """

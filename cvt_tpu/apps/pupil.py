@@ -7,7 +7,7 @@ findPupilEllipse (src/pupil_tracker.cc, include/pupil_tracker.h:13-78):
 -histogram threshold ("KMeans" split in the reference), 4) edge points +
 RANSAC ellipse fit through a conic section (include/conic_section.h).
 
-TPU-native: every stage is batched over [B, H, W] eye crops —
+Batched design: every stage is batched over [B, H, W] eye crops —
   * specular erase = mask + blur infill (elementwise + conv),
   * the Haar search = two box convolutions per radius (XLA fuses the
     stack), argmax over (radius, y, x),

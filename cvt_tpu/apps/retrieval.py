@@ -6,7 +6,7 @@ sidecar (:299-399), makeSearch.cpp queries per descriptor, filters by
 distance < 0.1 and keypoint-angle difference < 10 degrees, counts votes
 per image (:52-62), then SVF-reranks the top images (:66-107).
 
-TPU-native: the per-descriptor kNN runs on any cvt_tpu index (exact flat
+Batched design: the per-descriptor kNN runs on any cvt_tpu index (exact flat
 by default — BASELINE.json config 4 replaces the HNSW walk with the flat
 scan; pass a FlatADCIndex for the compressed path). Votes aggregate with
 one scatter-add over image ids; reranking batches SVF or RANSAC over the

@@ -11,9 +11,9 @@ Reference:
     (logo.cc:104-105, sift_near_thresh), SVF validation (logo.cc:237).
   * ffmpeg_read_memory / the FFDecoder path: video decode stays host-side
     here (any [T, H, W] gray frame array source: imageio, cv2, ...) —
-    the TPU consumes batched frame tensors.
+    the device consumes batched frame tensors.
 
-TPU-native: frames are processed as a BATCH — one extract_sift call for
+Batched design: frames are processed as a BATCH — one extract_sift call for
 all frames, vmapped matching/verification. No per-frame Python loops on
 the device path.
 """
@@ -209,7 +209,7 @@ class LogoDetector:
     # -- template model pack (the make_model.cc .dat analogue) ----------
     def save(self, path: str) -> None:
         """Pack every template's precomputed features + HOG + thresholds
-        into one npz — the TPU-native equivalent of logo_detection's
+        into one npz — the batched equivalent of logo_detection's
         binary .dat model (make_model.cc:149-277 packs per-template
         name, SIFT features, thresholds, and the template image; here
         the image is replaced by its extracted features + HOG, which is

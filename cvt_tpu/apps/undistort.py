@@ -6,13 +6,13 @@ per-image UndistortImage via Camera models + bilinear interpolation,
 with blank-pixel / scale ROI selection in
 base/undistortion.cc:UndistortCamera).
 
-TPU-native: the whole warp is one fused program — an output pixel grid
+Batched design: the whole warp is one fused program — an output pixel grid
 is pushed through the FORWARD distortion of the source camera (pixel ->
 normalized pinhole ray -> distorted source pixel; no iterative inverse
 needed for this direction) and sampled with bilinear interpolation
 (jax.scipy.ndimage.map_coordinates, order=1), vmapped over image
 batches. The reference's per-pixel scalar loop with 4-tap interpolation
-(undistortion.cc) becomes two gathers + fused VPU arithmetic.
+(undistortion.cc) becomes two gathers + fused elementwise arithmetic.
 """
 
 from __future__ import annotations

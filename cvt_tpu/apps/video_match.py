@@ -6,7 +6,7 @@ GHT validation (SVF spatial + octave histogram, GHT.cpp:6-180) ->
 optional cv::findHomography RANSAC (GHT.cpp:238-255, threshold 10) ->
 report frames with >= numThrehold (10) verified inliers.
 
-TPU-native: decode is host-side (cvt_tpu.io.video.VideoReader); frames
+Batched design: decode is host-side (cvt_tpu.io.video.VideoReader); frames
 are batched into fixed [T, H, W] stacks, SIFT extraction and the whole
 match/verify stack run batched on device via TemplateMatcher (one
 extract_sift per batch, vmapped verification — no per-frame device

@@ -512,6 +512,8 @@ def _cmd_bench(args):
 
 
 def main(argv=None):
+    from cvt_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     p = argparse.ArgumentParser(prog="cvt_tpu", description=__doc__)
     sub = p.add_subparsers(dest="command", required=True)
 

@@ -1,4 +1,4 @@
-"""Scale-space keypoint detection + SIFT descriptors (TPU-batched)."""
+"""Scale-space keypoint detection + SIFT descriptors (batched)."""
 
 from cvt_tpu.features.scale_space import build_pyramid, OctavePyramid
 from cvt_tpu.features.detect import detect_octave, hessian_response, Keypoints

@@ -8,7 +8,7 @@ through the current A, until the normalized patch is isotropic (M ~ I).
 The resulting unit-determinant A maps the unit circle to the feature's
 ellipse; descriptors sample through R(angle) * A.
 
-TPU-native: fixed ITERS iterations of a closed-form 2x2 inverse square
+Batched design: fixed ITERS iterations of a closed-form 2x2 inverse square
 root, vmapped over all keypoints — no per-feature convergence loops
 (non-converging features simply keep their last iterate; VLFeat drops
 them, which costs keypoints without helping recall).

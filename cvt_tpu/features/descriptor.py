@@ -7,7 +7,7 @@ parameters (4x4 spatial bins x 8 orientations, Gaussian window,
 0.2 clipping, 512 scaling); RootSIFT from
 hnsw_sifts_retrieval/makeSIFTs.cpp:79-95 (L1 -> sqrt -> L2).
 
-TPU-native: no per-keypoint loops. Every keypoint samples a FIXED PxP
+Batched design: no per-keypoint loops. Every keypoint samples a FIXED PxP
 grid (scaled by its sigma, rotated by its orientation) from its pyramid
 level's gradient fields via batched bilinear gathers; histogramming is a
 soft one-hot matmul-style scatter. Shapes are [B, K, P, P] throughout —
@@ -286,9 +286,8 @@ def _flat_sampler_pair(base_arr, h_arr, w_arr):
 
     Each bilinear row is ONE contiguous 4-element gather
     (dx00, dy00, dx01, dy01) instead of four scalar gathers — gather
-    descriptors are the hottest op of orientation/descriptor sampling
-    on TPU, and contiguous slices cut their count 4x while moving the
-    same bytes."""
+    are the hottest op of orientation/descriptor sampling, and
+    contiguous slices cut their count 4x while moving the same bytes."""
     def sample(gf, oct_i, li, xs, ys):
         hv = h_arr[oct_i]
         wv = w_arr[oct_i]
@@ -316,9 +315,9 @@ def _orientation_peaks(g1, g2, wgt, n_orientations: int,
     gradients [P^2] -> (angles [O], ok [O]).
 
     The 36-bin accumulation is a soft-one-hot [P^2, 36] matmul rather
-    than 2*P^2 scatter-adds — per-keypoint scatters were the single
-    hottest op of the whole extraction pipeline on TPU (the descriptor
-    accumulation uses the same formulation)."""
+    than 2*P^2 scatter-adds — per-keypoint scatters serialize on
+    colliding bins (the descriptor accumulation uses the same
+    formulation)."""
     o = n_orientations
     mag = jnp.sqrt(g1 * g1 + g2 * g2)
     ang = jnp.arctan2(g2, g1)

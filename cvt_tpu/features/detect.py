@@ -4,7 +4,7 @@ Reference behavior: VLFeat sift/covdet detection as configured by
 covdet/vl_covdet.hpp:79-88 (peakThreshold, edgeThreshold=10, boundary
 margin drop at :150-156) and sift.h:59-84 (peak_threshold 0.02/3).
 
-TPU-native: extrema tests are two 3x3x3 reduce_windows over the whole
+Batched design: extrema tests are two 3x3x3 reduce_windows over the whole
 [B, L, H, W] DoG stack (no per-pixel loops); candidate selection is a
 top-K over response magnitude (fixed maxK slots + validity mask — the
 fixed-shape replacement for cvt's ragged keypoint vectors); the 3D
@@ -154,8 +154,7 @@ def detect_octave(dog: jax.Array, *, max_k: int,
     hys = 0.25 * (p[..., 2, 2, 1] - p[..., 2, 0, 1]
                   - p[..., 0, 2, 1] + p[..., 0, 0, 1])
     # closed-form symmetric 3x3 solve (adjugate/Cramer): a batched
-    # linalg.solve here lowered to a per-keypoint LU loop that was a
-    # measurable chunk of the whole extraction pipeline on TPU
+    # linalg.solve here lowers to a per-keypoint LU loop
     a00 = hxx + 1e-6
     a11 = hyy + 1e-6
     a22 = hss + 1e-6

@@ -5,7 +5,7 @@ opencv_dnn_feature, opencv_caffe_sim, caffe_feature) are five C++
 wrappers around frozen CNN graphs exposing the same surface:
 `initModel(model) / computeFeat(image) / computeFeatsBatch(images)` with
 L2 normalization (e.g. tf_extract_feat/include/tfExtractFeature.hpp:36-63).
-On TPU that surface collapses to "any JAX callable [B,H,W,C] -> [B,D]"
+Here that surface collapses to "any JAX callable [B,H,W,C] -> [B,D]"
 jitted once; this module provides the harness (preprocessing, batching,
 L2 norm, PCA/SQ compression chaining) plus a self-contained convolutional
 encoder for pipelines that need a deterministic built-in model (no
@@ -73,7 +73,7 @@ def _simple_cnn_forward(params, head, x):
 
 @dataclass
 class EmbeddingExtractor:
-    """Batched image -> embedding with L2 norm; the TPU replacement for
+    """Batched image -> embedding with L2 norm; the batched replacement for
     the reference's five CNN wrapper classes."""
 
     fn: object                   # callable [B, H, W, C] -> [B, D]

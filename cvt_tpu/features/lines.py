@@ -1,4 +1,4 @@
-"""LSD-style line segment detector, batched TPU-native.
+"""LSD-style line segment detector, batched.
 
 Reference: the vendored LSD library (retrieval/vlindex/lib/LSD/ — the
 von Gioi et al. "LSD: a Line Segment Detector" TPAMI'10 / IPOL'12
@@ -6,7 +6,7 @@ algorithm): Gaussian downscale -> level-line field (gradient angle) ->
 region growing of aligned pixels -> rectangle approximation -> NFA
 (number of false alarms) validation.
 
-TPU-native redesign — the reference's sequential region growing (one
+Redesign — the reference's sequential region growing (one
 seed at a time, pixels visited in gradient-magnitude order) is replaced
 by a BATCHED connected-component pass over the whole aligned-pixel
 field:

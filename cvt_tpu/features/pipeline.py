@@ -1,11 +1,11 @@
-"""Batched feature-extraction pipeline: host IO threads feeding the TPU.
+"""Batched feature-extraction pipeline: host IO threads feeding the device.
 
 Reference: retrieval/vlindex/src/feature/extraction.h:50-152 — COLMAP's
 3-stage producer-consumer pipeline (ImageReader -> ImageResizerThread(s)
 -> SiftFeatureExtractorThread(s) -> FeatureWriterThread) connected by
 JobQueue (util/threading.h:260-319), writing into the SQLite Database.
 
-TPU-native redesign: the device wants LARGE batches, not per-image
+Redesign: the device wants LARGE batches, not per-image
 tasks. So the pipeline is
   reader threads (decode + resize to a fixed [H, W], host, parallel)
     -> a bounded batch assembler (fixed [B, H, W] stacks; padding mask)

@@ -5,8 +5,8 @@ driven by covdet/vl_covdet.hpp:73-140 with doubleImage=first_octave -1)
 and vlindex SIFT options (retrieval/vlindex/src/feature/sift.h:59-84:
 first_octave=-1, octave_resolution 3, peak 0.02/3, edge 10).
 
-TPU-native: every Gaussian level is a separable depthwise convolution on
-a [B, H, W] batch (XLA fuses and tiles these onto the MXU/VPU); octaves
+Batched design: every Gaussian level is a separable depthwise convolution on
+a [B, H, W] batch (XLA fuses and tiles these); octaves
 are a static Python loop over halving shapes so everything under jit has
 fixed shapes. Incremental blurs between levels keep kernels small.
 """

@@ -6,7 +6,7 @@ GetEmbedd(word) = word/subword vector lookup, L2Norm. The model itself
 is an external artifact there; the framework capability is embedding
 lookup + normalization as a search front-end.
 
-TPU-native: the embedding table is a device array; a batch of token-id
+Batched design: the embedding table is a device array; a batch of token-id
 rows becomes ONE gather + mean + L2-normalize under jit. Out-of-vocab
 handling follows fastText: unknown words average hashed character
 n-gram bucket vectors (FNV-1a hash into `n_buckets`, the fastText

@@ -2,8 +2,8 @@
 
 This is the north-star engine (BASELINE.json configs 2/4): the HNSW graph
 walk (hnsw_sifts_retrieval) and the IVF probe heap (opq/src/IVFOPQ.cpp
-:237-309) are deliberately replaced by a flat, batched, HBM-resident code
-scan — pointer-chasing does not map to a TPU; streaming matmuls do.
+:237-309) are deliberately replaced by a flat, batched, device-resident
+code scan — pointer-chasing does not batch; streaming matmuls do.
 
 Scoring (L2): for code row c with PQ decode d(c) = concat_m CB[m, c_m],
 
@@ -13,14 +13,13 @@ Scoring (L2): for code row c with PQ decode d(c) = concat_m CB[m, c_m],
     time (one f32 per code row);
   * <q, d(c)> = sum_m <q_m, CB[m, c_m]>: rather than the reference's
     per-point LUT-gather loop (IVFOPQ.cpp:300-309), the scan DECODES each
-    code tile to bf16 on the MXU (one-hot matmul) and hits it with a
-    single [T, D] x [D, B] score matmul. Decode-first costs 2*K*D flops
-    per row, amortized over the whole query batch — 10-100x cheaper than
-    LUT-sum-per-query (2*M*K*B) whenever D << M*K, and 100% MXU.
+    code tile (one-hot matmul) and hits it with a single [T, D] x [D, B]
+    score matmul — decode-first, amortized over the whole query batch.
 
-The pure-XLA engine here is the reference implementation; the fused
-Pallas kernel (cvt_tpu.ops.pallas.adc_scan) is the production path and is
-cross-checked against this module in tests.
+The packed int8 segment scan (cvt_tpu.ops.pallas.adc_scan) is the
+search path for k <= 128 on every route. `_adc_scan` here is the plain
+bf16 engine (exact top-k): the only engine for k > 128, and a
+reference for the packed scan in tests.
 """
 
 from __future__ import annotations
@@ -31,6 +30,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
+from cvt_tpu.ops import backend
+from cvt_tpu.ops.pallas import adc_scan
 from cvt_tpu.ops.topk import merge_topk
 from cvt_tpu.quant.opq import OPQ
 from cvt_tpu.quant.pq import ProductQuantizer
@@ -38,7 +39,7 @@ from cvt_tpu.quant.pq import ProductQuantizer
 
 def _decode_chunk_bf16(codes, codebooks):
     """codes [T, M] int32, codebooks [M, K, ds] -> [T, D] bf16 via one-hot
-    batched matmul (MXU). K-dim one-hot is built as int8 compare masks."""
+    batched matmul. K-dim one-hot is built as int8 compare masks."""
     m, k, ds = codebooks.shape
     t = codes.shape[0]
     iota = jax.lax.broadcasted_iota(jnp.int32, (m, t, k), 2)
@@ -58,16 +59,17 @@ def _adc_scan(q, q_sq, codes, dec_sq, codebooks, k, chunk, n_valid):
     n_chunks = npad // chunk
     codes_c = codes.reshape(n_chunks, chunk, codes.shape[1])
     dec_sq_c = dec_sq.reshape(n_chunks, chunk)
-    qT = q.astype(jnp.bfloat16).T                                # [D, B]
+    qb = q.astype(jnp.bfloat16)                                  # [B, D]
 
     def scan_chunk(carry, xs):
         c_idx, chunk_codes, chunk_dsq = xs
         dec = _decode_chunk_bf16(chunk_codes.astype(jnp.int32),
                                  codebooks)                      # [T, D] bf16
+        # [B, T] straight from the product: no transpose before top_k
         ip = jax.lax.dot_general(
-            dec, qT, dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)                  # [T, B]
-        dist = (q_sq[None, :] - 2.0 * ip + chunk_dsq[:, None]).T  # [B, T]
+            qb, dec, dimension_numbers=(((1,), (1,)), ((), ())),
+            preferred_element_type=jnp.float32)                  # [B, T]
+        dist = q_sq[:, None] - 2.0 * ip + chunk_dsq[None, :]     # [B, T]
         base = c_idx * chunk
         local_ids = base + jax.lax.broadcasted_iota(jnp.int32, (1, chunk), 1)
         dist = jnp.where(local_ids < n_valid, dist, jnp.inf)
@@ -96,9 +98,8 @@ def _adc_scan(q, q_sq, codes, dec_sq, codebooks, k, chunk, n_valid):
 def _encode_many(x, rotation, codebooks, rotate: bool):
     """x [C, T, D] device-resident chunk stack -> (codes [C, T, M] u8,
     dec_sq [C, T] f32) in ONE dispatch: a lax.map over fixed-shape chunks
-    keeps peak memory at one [M, T, K] distance block while amortizing
-    the per-dispatch launch overhead (~25 ms on remote-dispatch backends) across
-    the whole stack — this is what lifts encode to >=1M codes/s."""
+    keeps peak memory at one [T, M*K] distance block and launches one
+    program for the whole stack."""
     def one(xc):
         return _encode_chunk(xc, rotation, codebooks, rotate)
     return jax.lax.map(one, x)
@@ -116,14 +117,14 @@ def _encode_chunk(x, rotation, codebooks, rotate: bool):
     """
     x = jnp.asarray(x, jnp.float32)
     if rotate:
-        x = jnp.matmul(x, rotation, preferred_element_type=jnp.float32)
+        x = jnp.matmul(x, rotation, precision=jax.lax.Precision.HIGHEST,
+                       preferred_element_type=jnp.float32)
     m, k, ds = codebooks.shape
     t = x.shape[0]
-    # Block-diagonal [D, M*K] codebook operand: ONE MXU matmul with a
-    # full 128-deep contraction replaces the per-subspace einsum whose
-    # ds(=16)-deep contraction used 1/8 of the MXU and materialized an
-    # [M, T, K] f32 block. M x redundant flops, but at full MXU
-    # utilization. f32 (HIGHEST) so cell assignments stay identical to
+    # Block-diagonal [D, M*K] codebook operand: ONE matmul with a full
+    # D-deep contraction replaces a per-subspace einsum whose ds-deep
+    # contraction materialized an [M, T, K] block (M x redundant flops).
+    # f32 (HIGHEST) so cell assignments stay identical to
     # ProductQuantizer.encode's f32 path — bf16 here flips near-tie
     # cells and makes add() disagree with pq.encode on the same data.
     cbt = jnp.zeros((m * ds, m * k), jnp.float32)
@@ -143,10 +144,13 @@ class FlatADCIndex:
     """Flat scan over PQ/OPQ codes with asymmetric (query-float) distances."""
 
     ENC_CHUNK = 131_072          # fixed encode sub-chunk (one compile)
+    ROW_ALIGN = 1024             # scan operand rows are padded to this
 
     def __init__(self, quantizer, chunk: int = 16384, impl: str = "auto"):
-        """quantizer: ProductQuantizer or OPQ. impl: 'xla' | 'pallas' |
-        'auto' (pallas on TPU, xla elsewhere)."""
+        """quantizer: ProductQuantizer or OPQ. impl: 'auto' | 'pallas' |
+        'xla', resolved by cvt_tpu.ops.backend.scan_route: 'auto' is the
+        packed scan kernel on a GPU and its plain XLA twin on the CPU.
+        chunk: rows per step of the bf16 engine (k > 128)."""
         if isinstance(quantizer, OPQ):
             self.pq = quantizer.pq
             self.rotation = quantizer.rotation
@@ -190,6 +194,7 @@ class FlatADCIndex:
         if self.rotation is None:
             return x
         return jnp.matmul(x, self.rotation,
+                          precision=jax.lax.Precision.HIGHEST,
                           preferred_element_type=jnp.float32)
 
     def add(self, x=None, *, codes=None) -> None:
@@ -242,24 +247,29 @@ class FlatADCIndex:
             self._pending.append((codes, dsq))
             self._pending_n += int(codes.shape[0])
 
-    def _resolve_impl(self) -> str:
-        if self.impl != "auto":
-            return self.impl
-        return ("pallas" if jax.default_backend() == "tpu" else "xla")
-
     def search(self, q, k: int, *, exact: bool = False):
         """q [B, D] raw-space float -> (dists [B, k], ids [B, k]).
 
-        exact=True (Pallas path) re-scores the winning segments in f32,
-        giving exact top-k w.r.t. full-precision ADC; the default fast
-        path scores with the int8-decode kernel only (top-1 exact by the
-        segment lemma up to int8 quantization of the codebooks)."""
+        For k <= 128 the packed scan runs on the route the backend
+        switch picks: the default fast path returns int8-scored distances
+        of the k best 128-row segments (top-1 exact up to the int8
+        quantization of the codebooks); exact=True re-scores the winning
+        segments in float32. For k > 128 the bf16 engine (_adc_scan) is
+        the only one: exact top-k over its bf16 decode either way."""
         self._materialize()
         if self._codes is None:
             raise RuntimeError("empty index")
         qr = self._rotate(q)
-        q_sq = jnp.sum(jnp.square(qr), axis=-1)
         n = self.ntotal
+        k = min(k, n)
+        if k <= 128:
+            dec, norm, srow = self.scan_operand()
+            return adc_scan.adc_search(
+                qr, dec, norm, srow, k, n,
+                route=backend.scan_route(impl=self.impl), exact=exact,
+                codes=self._codes, dec_sq=self._dec_sq,
+                codebooks=self.pq.codebooks)
+        q_sq = jnp.sum(jnp.square(qr), axis=-1)
         chunk = min(self.chunk, n)
         npad = -(-n // chunk) * chunk
         codes, dsq = self._codes, self._dec_sq
@@ -268,84 +278,35 @@ class FlatADCIndex:
                 [codes, jnp.zeros((npad - n, self.pq.m), jnp.uint8)], axis=0)
             dsq = jnp.concatenate(
                 [dsq, jnp.zeros((npad - n,), jnp.float32)], axis=0)
-        impl = self._resolve_impl()
-        if impl == "pallas" and k <= 128:
-            if (not exact and getattr(self, "_dec8_n", None) == n):
-                from cvt_tpu.ops.pallas.adc_scan import adc_search_cached
-                interp = jax.default_backend() != "tpu"
-                return adc_search_cached(qr, self._dec8_t,
-                                         self._norm_col,
-                                         self._srow_cache, min(k, n), n,
-                                         interpret=interp)
-            from cvt_tpu.ops.pallas.adc_scan import adc_search
-            codes_t, cbt_q, srow, group = self._pallas_arrays()
-            return adc_search(qr, q_sq, self._codes, self._dec_sq,
-                              self.pq.codebooks, min(k, n), n,
-                              codes_t=codes_t, cbt_q=cbt_q, srow=srow,
-                              group=group, exact=exact)
-        return _adc_scan(qr, q_sq, codes, dsq, self.pq.codebooks,
-                         min(k, n), chunk, n)
+        return _adc_scan(qr, q_sq, codes, dsq, self.pq.codebooks, k, chunk,
+                         n)
 
     def build_decoded_cache(self) -> None:
-        """Materialize the int8-DECODED transposed database [D, Npad]
-        plus quantized-space row norms for the decode-free Pallas scan
-        (adc_search_cached). A memory/speed trade: 16x the code bytes
-        (int8 D per row vs M u8 codes) buys skipping the in-kernel
-        one-hot build + decode matmul every query batch. The codes stay
-        the index ground truth (recall is identical — the cache IS the
-        kernel's decode output, precomputed); rebuild after add()s.
-        """
+        """Build the packed scan's operand: the database decoded through
+        int8-quantized codebooks, [Npad, D] int8 (16x the bytes of 64-bit
+        codes), plus quantized-space row norms. search() builds it on
+        first use and after add(); the codes stay the index's ground
+        truth."""
         self._materialize()
         if self._codes is None:
             raise RuntimeError("empty index")
-        cb = np.asarray(self.pq.codebooks, np.float32)
-        m, kk, ds = cb.shape
-        # identical int8 quantization to _group_codebooks (per-dim
-        # symmetric scales over the K codewords)
-        scales = np.abs(cb).max(axis=1) / 127.0
-        scales = np.maximum(scales, 1e-12)
-        cb_q = np.clip(np.rint(cb / scales[:, None, :]),
-                       -127, 127).astype(np.int8)
-        codes = np.asarray(self._codes)
-        n = codes.shape[0]
-        npad = -(-n // 16384) * 16384
-        dec = cb_q[np.arange(m)[None, :],
-                   codes.astype(np.int64)].reshape(n, m * ds)
-        srow = scales.reshape(m * ds).astype(np.float32)
-        norm = ((dec.astype(np.float32) * srow[None, :]) ** 2).sum(1)
-        if npad != n:
-            dec = np.concatenate(
-                [dec, np.zeros((npad - n, m * ds), np.int8)], axis=0)
-            norm = np.concatenate([norm, np.zeros(npad - n, np.float32)])
-        self._dec8_t = jax.device_put(
-            jnp.asarray(np.ascontiguousarray(dec.T)))
-        self._norm_col = jax.device_put(jnp.asarray(norm[:, None]))
-        self._srow_cache = jnp.asarray(srow)
+        n = self.ntotal
+        npad = -(-n // self.ROW_ALIGN) * self.ROW_ALIGN
+        codes = jnp.pad(self._codes, ((0, npad - n), (0, 0)))
+        cb_q, srow = adc_scan.quantize_codebooks(self.pq.codebooks)
+        cb_q, srow = jnp.asarray(cb_q), jnp.asarray(srow)
+        self._dec8 = adc_scan.decode_int8(
+            codes, cb_q, adc_scan.padded_dim(self.dim))
+        self._norm8 = adc_scan.int8_row_norms(codes, cb_q, srow)
+        self._srow8 = srow
         self._dec8_n = n
 
-    def _pallas_arrays(self):
-        """Transposed int32 codes + grouped codebooks, laid out once for
-        the Pallas kernel (padded to the largest tile so any tile_n
-        divides)."""
-        self._materialize()
-        n = self.ntotal
-        if getattr(self, "_codes_t_n", None) != n:
-            from cvt_tpu.ops.pallas.adc_scan import _group_codebooks
-            npad = -(-n // 16384) * 16384
-            codes = self._codes
-            if npad != n:
-                codes = jnp.concatenate(
-                    [codes, jnp.zeros((npad - n, self.pq.m), jnp.uint8)],
-                    axis=0)
-            ct = jnp.asarray(codes).astype(jnp.int32).T          # [M, Npad]
-            mpad = -(-ct.shape[0] // 8) * 8
-            if mpad != ct.shape[0]:
-                ct = jnp.pad(ct, ((0, mpad - ct.shape[0]), (0, 0)))
-            self._codes_t = jax.device_put(ct)
-            self._cbt_q, self._srow, self._group = _group_codebooks(
-                self.pq.codebooks)
-            self._codes_t_n = n
-        return self._codes_t, self._cbt_q, self._srow, self._group
+    def scan_operand(self):
+        """(dec [Npad, Dpad] int8, norm [Npad] f32, srow [D] f32): the
+        packed scan's operand, built on first use and after add()."""
+        if getattr(self, "_dec8_n", None) != self.ntotal:
+            self.build_decoded_cache()
+        return self._dec8, self._norm8, self._srow8
 
     # -- persistence ------------------------------------------------------
     def save(self, path: str) -> None:

@@ -1,10 +1,9 @@
 """Flat int8-SQ index: asymmetric distance scan over uint8 codes.
 
-TPU-native redesign of config 1 in BASELINE.json (int8 SQ encode +
-brute-force L2 top-10). The reference decodes nothing at search time
-either — but it has no SQ search path at all (codes are used for storage;
+Config 1 of BASELINE.json (int8 SQ encode + brute-force L2 top-10). The
+reference has no SQ search path at all (codes are used for storage;
 search is float AVX scans). Here the decode is folded into the scan
-algebraically so scoring stays matmul-shaped on the MXU:
+algebraically so scoring stays matmul-shaped:
 
     decode(c) = bias + scale * c         (cvt int8_quan.cc decode form)
     ||q - decode(c)||^2 = ||r||^2 - 2 <r*scale, c> + ||scale*c||^2
@@ -14,11 +13,12 @@ algebraically so scoring stays matmul-shaped on the MXU:
   * term3 is a per-point f32 precomputed at add() time;
   * term1 is a per-query constant.
 
-Two MXU paths:
+Two scan modes (search):
   'bf16': codes lifted to bf16 (exact: bf16 holds integers <= 256).
   'int8': query side quantized to int8, codes stored shifted to int8
-          (c - 128), scoring runs the int8x int8 -> int32 MXU path at
-          2x bf16 throughput; only the query rounding is approximate.
+          (c - 128), scored by an int8 x int8 -> int32 product; only the
+          query rounding is approximate.
+search_fast runs the packed segment scan of cvt_tpu.ops.pallas.adc_scan.
 """
 
 from __future__ import annotations
@@ -29,6 +29,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
+from cvt_tpu.ops import backend
+from cvt_tpu.ops.pallas import adc_scan
 from cvt_tpu.ops.topk import merge_topk
 from cvt_tpu.quant.sq import ScalarQuantizer
 
@@ -147,48 +149,35 @@ class FlatSQIndex:
         return _sq_scan(r_scaled, r_sq, codes, t3, min(k, n), self.mode,
                         chunk, n)
 
-    def search_fast(self, q, k: int, *, interpret: bool | None = None):
-        """Fused Pallas scan (the production path): the SQ decode is
-        per-dim AFFINE (decode = a*c' + b with c' = code-128 int8), so
-        the scan maps EXACTLY onto the flat ADC decoded-cache kernel —
-        dist(q, x) = ||(q - b) - a*c'||^2 — with the bias folded into
-        the query and the per-dim scales as the kernel's dequant row.
-        ~20x the chunked bf16 scan's throughput at 1M x d=64 (the bf16
-        path pays a [B, chunk] top_k per chunk; the kernel's packed
-        segment-min pass doesn't).
-        """
+    def search_fast(self, q, k: int, *, impl: str = "auto"):
+        """Packed segment scan (the production path). The SQ decode is
+        per-dim affine (decode = a*c' + b with c' = code-128 int8), so the
+        codes ARE the scan's int8 operand: dist(q, x) = ||(q - b) - a*c'||^2
+        with the bias folded into the query and the per-dim scales as the
+        dequant row. impl goes to cvt_tpu.ops.backend.scan_route."""
         if self._codes_s8 is None:
             raise RuntimeError("empty index")
-        if interpret is None:
-            interpret = jax.default_backend() != "tpu"
-        from cvt_tpu.ops.pallas.adc_scan import adc_search_cached
+        route = backend.scan_route(impl=impl)
         q = jnp.asarray(q, jnp.float32)
         n = self.ntotal
-        # rebuild when vectors were added since the cache was built (the
-        # padded capacity may still cover them, so compare the REAL count)
+        # rebuild when vectors were added since the operand was built
         if getattr(self, "_dec8_n", -1) != n:
-            self._dec8_n = n
-            tile = 1024
-            npad = -(-n // tile) * tile
-            # the packed kernel's integer margins assume |values| <= 127
+            npad = -(-n // 1024) * 1024
+            # the packing's integer margins assume |values| <= 127
             # (_pack_caps); code 0 maps to -128, so clip it to -127 — a
             # one-step error on the rare per-dim minimum only
             s8 = jnp.maximum(self._codes_s8, jnp.int8(-127))
-            scale = self.sq.scale
-            nrm = jnp.sum(jnp.square(scale[None, :]
+            nrm = jnp.sum(jnp.square(self.sq.scale[None, :]
                                      * s8.astype(jnp.float32)), axis=-1)
-            if npad != n:
-                s8 = jnp.concatenate(
-                    [s8, jnp.zeros((npad - n, self.dim), jnp.int8)])
-                nrm = jnp.concatenate(
-                    [nrm, jnp.zeros((npad - n,), jnp.float32)])
-            self._dec8_t = jnp.asarray(np.ascontiguousarray(np.asarray(s8).T))
-            self._norm_col = nrm[:, None]
+            self._dec8 = jnp.pad(
+                s8, ((0, npad - n), (0, adc_scan.padded_dim(self.dim)
+                                     - self.dim)))
+            self._norm8 = jnp.pad(nrm, (0, npad - n))
+            self._dec8_n = n
         b_vec = self.sq.bias + 128.0 * self.sq.scale   # decode offset
-        d, i = adc_search_cached(q - b_vec[None, :], self._dec8_t,
-                                 self._norm_col, self.sq.scale,
-                                 min(k, n), n, interpret=interpret)
-        return d, jnp.where(i < n, i, -1)
+        return adc_scan.adc_search(q - b_vec[None, :], self._dec8,
+                                   self._norm8, self.sq.scale, min(k, n), n,
+                                   route=route)
 
     # -- persistence ------------------------------------------------------
     def save(self, path: str) -> None:

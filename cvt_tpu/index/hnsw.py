@@ -6,10 +6,11 @@ M/ef_construction, addPoint, searchKnn, saveIndex/loadIndex;
 brute_force_search/src/hnswlib.hpp:22-57). The graph core is the native
 module cvt_tpu/native/hnsw.cc (from-scratch HNSW, OpenMP batch ops).
 
-Where it fits: on TPU the primary ANN engine is the flat Pallas ADC scan
-(HBM streaming beats pointer chasing); HnswIndex is the host-side
-complement for latency-sensitive small indexes and for recall parity
-experiments at the reference operating point (M=32, efC=80, IP, d=128).
+Where it fits: on the accelerator the primary ANN engine is the flat
+packed ADC scan (streaming device memory beats pointer chasing);
+HnswIndex is the host-side complement for latency-sensitive small
+indexes and for recall parity experiments at the reference operating
+point (M=32, efC=80, IP, d=128).
 """
 
 from __future__ import annotations

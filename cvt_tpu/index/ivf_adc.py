@@ -5,22 +5,23 @@ residual PQ encode (:141-163), nearest-nprobe selection (:237-260),
 per-probe LUT build (:279-291) and inverted-list LUT-sum scan (:300-309).
 Operating point there: d=128, coarseK=8192, m=16, k=256 (IVFOPQ.cpp:56-63).
 
-TPU-native redesign: inverted lists are PADDED DENSE BUCKETS
-[Kc, L, M] u8 so a probe is a static-shape gather, not pointer chasing.
+Inverted lists are PADDED DENSE BUCKETS [Kc, L, M] u8 so a probe is a
+static-shape gather, not pointer chasing.
 
     dist(q, n) = ||q - c_a(n) - d(code_n)||^2
                = sum_m LUT_r[b, p, m, code_n[m]]       (residual LUT)
 
 with LUT_r built for r = q - centroid_p as one batched einsum over all
 (query, probe) pairs at once. Lists longer than the bucket capacity spill
-into a flat TAIL scanned for every query with the exact algebraic
+into a flat TAIL scanned for every query (entries of cells the query
+did not probe masked out) with the exact algebraic
 expansion  ||q||^2 + ||c_a + d||^2 - 2<q, c_a> - 2<q, d(code)>  — the
 coarse inner products <q, c> are reused from probe selection, and
-<q, d(code)> is the same decode-first MXU scan as FlatADCIndex. Results
+<q, d(code)> is the same decode-first scan as FlatADCIndex. Results
 from buckets and tail merge in one top-k.
 
 Design note: BASELINE.json replaces IVF probing with the flat scan for
-the north-star benchmark (graph/list probing wastes the MXU at high
+the north-star benchmark (list probing wastes the matrix units at high
 recall); this index exists for capability parity with the reference and
 for the large-N / low-latency regime where scanning 1/64 of the database
 wins.
@@ -34,8 +35,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
+from cvt_tpu.ops import backend
 from cvt_tpu.ops.kmeans import kmeans
-from cvt_tpu.ops.pallas.ivf_scan import ivf_union_search
+from cvt_tpu.ops.pallas.ivf_scan import build_page_layout, ivf_union_search
 from cvt_tpu.ops.topk import merge_topk
 from cvt_tpu.quant.pq import ProductQuantizer
 
@@ -45,16 +47,18 @@ def _probed_scores(q, centroids, cw_sqnorm, codebooks, buckets, bucket_ids,
     """Shared probe + residual-LUT + bucket-scoring stage.
 
     Returns (flat_scores [B, P*L], flat_ids [B, P*L], coarse_ip [B, Kc],
-    q_sq [B]). probe_chunk bounds the [B, Pc, L, M] gather working set
-    for the reference operating point (coarseK=8192, m=16 — IVFOPQ.cpp
-    :56-63) by looping probe chunks instead of materializing all P.
+    q_sq [B], probes [B, P]). probe_chunk bounds the [B, Pc, L, M]
+    gather working set for the reference operating point (coarseK=8192,
+    m=16 — IVFOPQ.cpp:56-63) by looping probe chunks instead of
+    materializing all P.
     """
     b, d = q.shape
     m, kk, ds = codebooks.shape
     L = buckets.shape[1]
 
-    # ---- probe selection: full coarse IP scan (one MXU matmul) ----------
+    # ---- probe selection: full coarse IP scan (one matmul) --------------
     coarse_ip = jnp.matmul(q, centroids.T,
+                           precision=jax.lax.Precision.HIGHEST,
                            preferred_element_type=jnp.float32)    # [B, Kc]
     q_sq = jnp.sum(jnp.square(q), axis=-1)                        # [B]
     c_sq = jnp.sum(jnp.square(centroids), axis=-1)                # [Kc]
@@ -72,6 +76,7 @@ def _probed_scores(q, centroids, cw_sqnorm, codebooks, buckets, bucket_ids,
         r = q[:, None, :] - probe_cent
         r_sub = r.reshape(b, npc, m, ds)
         ip_lut = jnp.einsum("bpms,mks->bpmk", r_sub, codebooks,
+                            precision=jax.lax.Precision.HIGHEST,
                             preferred_element_type=jnp.float32)
         r_sq_sub = jnp.sum(jnp.square(r_sub), axis=-1)            # [B,Pc,M]
         lut = (r_sq_sub[..., None] - 2.0 * ip_lut
@@ -89,7 +94,7 @@ def _probed_scores(q, centroids, cw_sqnorm, codebooks, buckets, bucket_ids,
         else parts_s[0]
     flat_ids = jnp.concatenate(parts_i, axis=1) if len(parts_i) > 1 \
         else parts_i[0]
-    return flat_scores, flat_ids, coarse_ip, q_sq
+    return flat_scores, flat_ids, coarse_ip, q_sq, probes
 
 
 @partial(jax.jit, static_argnames=("nprobe", "k", "probe_chunk"))
@@ -106,7 +111,7 @@ def _ivf_query(q, centroids, cw_sqnorm, codebooks, buckets, bucket_ids,
     b, d = q.shape
     m, kk, ds = codebooks.shape
     L = buckets.shape[1]
-    flat_scores, flat_ids, coarse_ip, q_sq = _probed_scores(
+    flat_scores, flat_ids, coarse_ip, q_sq, probes = _probed_scores(
         q, centroids, cw_sqnorm, codebooks, buckets, bucket_ids,
         nprobe, probe_chunk)
     kb = min(k, nprobe * L)
@@ -117,8 +122,8 @@ def _ivf_query(q, centroids, cw_sqnorm, codebooks, buckets, bucket_ids,
     # ---- tail: flat decode-first scan with coarse-IP correction ---------
     t = tail_codes.shape[0]
     if t > 0:
-        tdist = _tail_dists(q, q_sq, coarse_ip, codebooks, tail_codes,
-                            tail_coarse, tail_dsq, tail_ids)
+        tdist = _tail_dists(q, q_sq, coarse_ip, probes, codebooks,
+                            tail_codes, tail_coarse, tail_dsq, tail_ids)
         kt = min(k, t)
         td, tj = jax.lax.top_k(-tdist, kt)
         ti = jnp.take_along_axis(
@@ -129,28 +134,29 @@ def _ivf_query(q, centroids, cw_sqnorm, codebooks, buckets, bucket_ids,
     return best_d, best_i
 
 
-def _tail_dists(q, q_sq, coarse_ip, codebooks, tail_codes, tail_coarse,
-                tail_dsq, tail_ids):
-    """Overflow-tail distances [B, T] (decode-first MXU scan with the
-    coarse inner products reused from probe selection; inf on padding)."""
+def _tail_dists(q, q_sq, coarse_ip, probes, codebooks, tail_codes,
+                tail_coarse, tail_dsq, tail_ids):
+    """Overflow-tail distances [B, T] (decode-first scan with the
+    coarse inner products reused from probe selection). inf on padding
+    and on entries of cells the query did not probe, so the tail keeps
+    nprobe semantics. float32 throughout, like the bucket LUTs: the tail
+    and the buckets compete in one top-k."""
     b, d = q.shape
-    m, kk, _ = codebooks.shape
+    m = codebooks.shape[0]
     t = tail_codes.shape[0]
-    iota = jax.lax.broadcasted_iota(jnp.int32, (m, t, kk), 2)
-    onehot = (tail_codes.astype(jnp.int32).T[:, :, None]
-              == iota).astype(jnp.bfloat16)                       # [M, T, K]
-    dec = jax.lax.dot_general(
-        onehot, codebooks.astype(jnp.bfloat16),
-        dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.bfloat16)                      # [M, T, ds]
-    dec = dec.transpose(1, 0, 2).reshape(t, d)
-    ip_d = jnp.matmul(dec, q.astype(jnp.bfloat16).T,
-                      preferred_element_type=jnp.float32).T       # [B, T]
+    dec = codebooks[jnp.arange(m)[None, :],
+                    tail_codes.astype(jnp.int32)].reshape(t, d)   # [T, D]
+    ip_d = jnp.matmul(q, dec.T, precision=jax.lax.Precision.HIGHEST,
+                      preferred_element_type=jnp.float32)         # [B, T]
     cip = jnp.take_along_axis(
         coarse_ip, jnp.broadcast_to(tail_coarse[None, :], (b, t)),
         axis=1)                                                   # [B, T]
     tdist = q_sq[:, None] + tail_dsq[None, :] - 2.0 * cip - 2.0 * ip_d
-    return jnp.where(tail_ids[None, :] >= 0, tdist, jnp.inf)
+    rows = jnp.arange(b)[:, None]
+    probed = jnp.zeros(coarse_ip.shape, bool).at[rows, probes].set(True)
+    hit = jnp.take_along_axis(
+        probed, jnp.broadcast_to(tail_coarse[None, :], (b, t)), axis=1)
+    return jnp.where((tail_ids[None, :] >= 0) & hit, tdist, jnp.inf)
 
 
 @partial(jax.jit, static_argnames=("nprobe", "max_results", "probe_chunk"))
@@ -164,13 +170,13 @@ def _ivf_query_threshold(q, centroids, cw_sqnorm, codebooks, buckets,
 
     Returns (dists [B, R], ids [B, R], valid [B, R] bool, count [B] i32).
     """
-    flat_scores, flat_ids, coarse_ip, q_sq = _probed_scores(
+    flat_scores, flat_ids, coarse_ip, q_sq, probes = _probed_scores(
         q, centroids, cw_sqnorm, codebooks, buckets, bucket_ids,
         nprobe, probe_chunk)
     t = tail_codes.shape[0]
     if t > 0:
-        tdist = _tail_dists(q, q_sq, coarse_ip, codebooks, tail_codes,
-                            tail_coarse, tail_dsq, tail_ids)
+        tdist = _tail_dists(q, q_sq, coarse_ip, probes, codebooks,
+                            tail_codes, tail_coarse, tail_dsq, tail_ids)
         flat_scores = jnp.concatenate([flat_scores, tdist], axis=1)
         flat_ids = jnp.concatenate(
             [flat_ids, jnp.broadcast_to(tail_ids[None, :],
@@ -200,13 +206,13 @@ def _ivf_query_grouped(q, centroids, cw_sqnorm, codebooks, buckets,
     where member_ids is the arg-min vector inside each winning group.
     """
     b = q.shape[0]
-    flat_scores, flat_ids, coarse_ip, q_sq = _probed_scores(
+    flat_scores, flat_ids, coarse_ip, q_sq, probes = _probed_scores(
         q, centroids, cw_sqnorm, codebooks, buckets, bucket_ids,
         nprobe, probe_chunk)
     t = tail_codes.shape[0]
     if t > 0:
-        tdist = _tail_dists(q, q_sq, coarse_ip, codebooks, tail_codes,
-                            tail_coarse, tail_dsq, tail_ids)
+        tdist = _tail_dists(q, q_sq, coarse_ip, probes, codebooks,
+                            tail_codes, tail_coarse, tail_dsq, tail_ids)
         flat_scores = jnp.concatenate([flat_scores, tdist], axis=1)
         flat_ids = jnp.concatenate(
             [flat_ids, jnp.broadcast_to(tail_ids[None, :],
@@ -332,12 +338,11 @@ class IVFADCIndex:
         bucket_ids[bi, br] = src.astype(np.int32)
         bucket_dsq[bi, br] = dsq_np[src]
 
-        # union-probe page layout for the Pallas fast path (ops/pallas/
-        # ivf_scan.py): cell-sorted segment-pure decoded int8 cache
-        from cvt_tpu.ops.pallas.ivf_scan import build_page_layout
+        # union-probe page layout for search_fast (ops/pallas/ivf_scan.py):
+        # cell-sorted segment-pure decoded int8 cache
         pg = build_page_layout(codes_np, assign_np, dsq_np,
                                self.pq.codebooks)
-        self._pg_dec8_t = jnp.asarray(pg["dec8_t"])
+        self._pg_dec8 = jnp.asarray(pg["dec8"])
         self._pg_dec16 = jnp.asarray(pg["dec16"])
         self._pg_srow16 = jnp.asarray(pg["srow16"])
         self._pg_nrm = jnp.asarray(pg["nrm_col"])
@@ -397,35 +402,32 @@ class IVFADCIndex:
 
     def search_fast(self, q, k: int, *, nprobe: int = 16,
                     max_pages: int | None = None,
-                    exact_probe: bool = True,
-                    interpret: bool | None = None):
-        """Union-probe Pallas scan (the production query path): same
-        nprobe semantics as search() but scored decode-free on the MXU —
-        see ops/pallas/ivf_scan.py. Returns (dists [B, k], ids [B, k],
-        n_dropped_pages)."""
+                    exact_probe: bool = True, impl: str = "auto"):
+        """Union-probe packed scan (the production query path): same
+        nprobe semantics as search() but scored decode-free — see
+        ops/pallas/ivf_scan.py. impl goes to cvt_tpu.ops.backend
+        .scan_route. Returns (dists [B, k], ids [B, k], n_dropped_pages)."""
         if not self._built:
             raise RuntimeError("build() first")
-        if not hasattr(self, "_pg_dec8_t"):
+        if not hasattr(self, "_pg_dec8"):
             raise RuntimeError("no page layout (index saved by an older "
                                "version) — rebuild with build()")
-        if interpret is None:
-            interpret = jax.default_backend() != "tpu"
+        route = backend.scan_route(impl=impl)
         q = jnp.asarray(q, jnp.float32)
         b = q.shape[0]
         nprobe = min(nprobe, self.coarse_k)
-        n_pages = self._pg_dec8_t.shape[1] // self._pg_lp
+        n_pages = self._pg_dec8.shape[0] // self._pg_lp
         if max_pages is None:
             # union bound: every (query, probe) pair could own up to two
             # distinct pages (a cell list straddling a page boundary)
             max_pages = min(n_pages, 2 * b * nprobe)
         max_pages = max(8, min(max_pages, n_pages))
         return ivf_union_search(
-            q, self.centroids, self._pg_dec8_t, self._pg_dec16,
+            q, self.centroids, self._pg_dec8, self._pg_dec16,
             self._pg_srow16, self._pg_nrm, self._pg_seg_cell,
             self._pg_rowids, self._pg_srow, self._pg_dsq_min, nprobe,
             k, max_pages, lp=self._pg_lp,
-            seg=self._pg_seg, exact_probe=exact_probe,
-            interpret=interpret)
+            seg=self._pg_seg, exact_probe=exact_probe, route=route)
 
     def search_threshold(self, q, radius: float, *, nprobe: int = 16,
                          max_results: int = 128,
@@ -463,7 +465,7 @@ class IVFADCIndex:
 
     # -- persistence ------------------------------------------------------
     def save(self, path: str) -> None:
-        if not hasattr(self, "_pg_dec8_t"):
+        if not hasattr(self, "_pg_dec8"):
             raise RuntimeError(
                 "this index was loaded from a pre-page-layout file and "
                 "cannot be re-saved losslessly — rebuild with build()")
@@ -480,7 +482,7 @@ class IVFADCIndex:
                  vec_groups=(np.asarray(self._vec_groups)
                              if self._vec_groups is not None
                              else np.zeros(0, np.int32)),
-                 pg_dec8_t=np.asarray(self._pg_dec8_t),
+                 pg_dec8=np.asarray(self._pg_dec8),
                  pg_dec16=np.asarray(self._pg_dec16),
                  pg_srow16=np.asarray(self._pg_srow16),
                  pg_nrm=np.asarray(self._pg_nrm),
@@ -511,8 +513,8 @@ class IVFADCIndex:
             0, np.int32)
         idx._vec_groups = jnp.asarray(vg) if vg.size else None
         idx.n_groups = int(vg.max()) + 1 if vg.size else 0
-        if "pg_dec8_t" in z.files:     # page layout (round-4+ files)
-            idx._pg_dec8_t = jnp.asarray(z["pg_dec8_t"])
+        if "pg_dec8" in z.files:       # row-major page layout
+            idx._pg_dec8 = jnp.asarray(z["pg_dec8"])
             idx._pg_dec16 = jnp.asarray(z["pg_dec16"])
             idx._pg_srow16 = jnp.asarray(z["pg_srow16"])
             idx._pg_nrm = jnp.asarray(z["pg_nrm"])

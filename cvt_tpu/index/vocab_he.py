@@ -12,13 +12,13 @@ heaps, visual_index.h:376-479) -> VoteAndVerify re-ranking (:481-501).
 Papers: Schoenberger et al. ACCV'16, Arandjelovic-Zisserman ACCV'14
 (cited at visual_index.h:51-58).
 
-TPU-native redesign:
-  * vocabulary = batched k-means (one MXU matmul per Lloyd step); for
+Redesign:
+  * vocabulary = batched k-means (one matmul per Lloyd step); for
     large vocabularies use a hierarchical two-level quantizer
     (cvt_tpu.ops.kmeans.hierarchical_kmeans) replacing FLANN's tree —
     word assignment is two small matmuls instead of one huge one;
   * the 64-bit signature lives as 2 x uint32 words; Hamming matching is
-    XOR + popcount on the VPU;
+    XOR + popcount, elementwise;
   * per-word HE thresholds are per-word MEDIANS of the projected
     training descriptors, matching inverted_file.h:276-292;
   * inverted files are PADDED DENSE BUCKETS [W, L] (image id, feature
@@ -225,7 +225,7 @@ class VocabHEIndex:
         reference operating point — 1M words — requires it. probes:
         coarse cells searched per descriptor at assignment; probes=0
         selects EXACT blocked assignment over the flat vocabulary
-        (kmeans_assign_blocked: running-min over word blocks, pure MXU —
+        (kmeans_assign_blocked: running-min over word blocks, pure matmuls —
         ~256 TFLOP for 1M descriptors x 1M words, a few seconds on chip,
         where the reference had to settle for FLANN's approximate
         tree descent)."""

@@ -8,7 +8,7 @@ image_id1 * 2147483647 + image_id2 convention for match tables, plus the
 "skip if already present" incremental pattern (visual_index.h:211-214,
 matching.cc:829-836).
 
-Host-side by design (storage is not a TPU problem); arrays are stored as
+Host-side by design (storage is not a device problem); arrays are stored as
 raw little-endian blobs with shape columns, so reads land directly in
 numpy and feed device batches without copies. WAL mode keeps the writer
 fast while the extraction pipeline's writer thread streams rows in.

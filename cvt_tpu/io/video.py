@@ -1,12 +1,12 @@
 """Host-side video decoding: filename or in-memory buffer -> frame
-batches for the TPU pipeline.
+batches for the device pipeline.
 
 Reference: ffmpeg_read_memory/include/ffdecoder.h:18-59 and
 video_object_match's FFDecoder/VideoCapture pair — libav* decode of a
 file path OR a raw `unsigned char*` memory buffer via a custom
 AVIOContext, exposing open/grab/retrieve/read.
 
-TPU-native stance: decode is host work (no FLOPs worth a chip); the
+Stance: decode is host work (no FLOPs worth a chip); the
 framework's job is to hand the device fixed-shape [T, H, W] gray or
 [T, H, W, 3] RGB batches. Backend is OpenCV's VideoCapture when
 available (in-memory buffers are staged through a temp file, the

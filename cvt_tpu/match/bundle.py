@@ -1,9 +1,9 @@
-"""Bundle adjustment: matrix-free Levenberg-Marquardt, TPU-native.
+"""Bundle adjustment: matrix-free Levenberg-Marquardt, batched.
 
 Reference: vlindex/src/optim/bundle_adjustment.cc (Ceres solver over
 reprojection residuals) and lib/PBA (CUDA parallel bundle adjustment —
 ProgramCU.cu implements exactly this matrix-free normal-equation CG on
-the GPU). TPU-native redesign: poses are axis-angle 6-vectors, points
+the GPU). Redesign: poses are axis-angle 6-vectors, points
 are [P, 3]; residuals are one masked [O, 2] tensor over a static
 observation list; the LM inner solve is conjugate gradient with
 J^T J products computed by jvp/vjp (no Jacobian ever materialized), so

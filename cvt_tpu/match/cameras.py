@@ -2,7 +2,7 @@
 
 Reference: vlindex/src/base/camera_models.h — COLMAP's 10 camera models
 expose WorldToImage / ImageToWorld per model with distortion handled by
-an iterative undistort. TPU-native redesign: each model is a pair of
+an iterative undistort. Redesign: each model is a pair of
 pure functions over [..., 2] point arrays; undistortion uses a
 fixed-iteration Newton loop (no data-dependent control flow), so the
 whole thing vmaps/jits over batches of cameras and points.

@@ -9,8 +9,8 @@ solutions), the Stewenius/Nister 5-point essential minimal solver, and
 essential-from-fundamental with known intrinsics, plus Sampson error
 scoring — all batched so RANSAC evaluates S hypotheses in one SVD batch.
 
-TPU notes: the 5-point solver avoids the nonsymmetric eigensolver (not
-available under XLA/TPU) — the 10x10 action matrix's eigenvalues come
+Solver notes: the 5-point solver avoids the nonsymmetric eigensolver
+(XLA has it on the CPU only) — the 10x10 action matrix's eigenvalues come
 from fixed-iteration Aberth–Ehrlich on p(z) = det(zI - A), with the
 Newton ratio p/p' evaluated through the trace identity
 p'/p = tr((zI - A)^{-1}) via batched split-complex linear solves (no
@@ -336,8 +336,8 @@ def _durand_kerner(coeffs, iters: int = 80):
     [..., n+1] (c0=1), returned as (real [..., n], imag [..., n]).
 
     Fixed-iteration Weierstrass/Durand-Kerner in EXPLICIT real/imag
-    arithmetic: some TPU backends lack complex reduction ops, and
-    split arithmetic lowers to plain VPU f32 everywhere."""
+    arithmetic: split arithmetic lowers to plain f32 on every backend,
+    with no complex reduction ops."""
     n = coeffs.shape[-1] - 1
     c0 = coeffs.astype(jnp.float32)
     # Fujiwara root-bound scaling: all roots satisfy
@@ -394,7 +394,7 @@ def fit_essential_5pt(src: jax.Array, dst: jax.Array):
     camera coordinates (K^-1 applied). Returns (E [..., 10, 3, 3],
     valid [..., 10]) with dst^T E src = 0.
 
-    TPU-native pipeline (no Groebner tables, no nonsymmetric eig):
+    batched pipeline (no Groebner tables, no nonsymmetric eig):
       1. 4-dim DLT null space E = x X + y Y + z Z + W (batched SVD);
       2. the 10 cubic constraints (det E = 0; 2 E E^T E - tr(E E^T) E = 0)
          assembled over a fixed 20-monomial basis by precomputed
@@ -462,7 +462,7 @@ def fit_essential_5pt(src: jax.Array, dst: jax.Array):
     amat = amat.at[..., 8, 2].set(1.0)             # x*z    = xz
     amat = amat.at[..., 9, 6].set(1.0)             # x*1    = x
 
-    # ---- real eigenvalues of the action matrix, TPU-robustly ----------
+    # ---- real eigenvalues of the action matrix, backend-robustly -------
     # An f32 charpoly (Faddeev-LeVerrier) + root-finding on its
     # COEFFICIENTS cannot resolve clustered eigenvalues: the coefficient
     # representation is catastrophically ill-conditioned in f32. Instead,
@@ -470,8 +470,8 @@ def fit_essential_5pt(src: jax.Array, dst: jax.Array):
     # p(z) = det(z I - A), with the Newton ratio p/p' obtained from the
     # trace identity  p'/p = tr((z I - A)^{-1})  via batched linear
     # solves — no polynomial coefficients anywhere. Complex arithmetic is
-    # split into real/imag with an augmented 20x20 real system (some TPU
-    # TPU backend lacks complex linalg). The mutual-repulsion term keeps
+    # split into real/imag with an augmented 20x20 real system (no complex
+    # linalg needed). The mutual-repulsion term keeps
     # the 10 candidates distinct, so clusters resolve like they do for
     # the exact eigensolver.
     eye10 = jnp.eye(10, dtype=jnp.float32)

@@ -9,7 +9,7 @@ homography (transfer error). Guided matching recovers correspondences the
 plain Lowe-ratio test rejects, because the ratio is computed only among
 geometrically plausible candidates.
 
-TPU-native: the geometric residual for ALL K1*K2 pairs is one broadcasted
+Batched design: the geometric residual for ALL K1*K2 pairs is one broadcasted
 matrix (no candidate lists) fused with the descriptor distance matmul;
 pairs failing the gate get +inf distance before the top-2/ratio/cross
 checks, so the whole guided re-match is a single jitted program.

@@ -7,8 +7,8 @@ via the Alternating Direction Method of Multipliers" (the reference
 cites the Stanford lad.m reference implementation). The reference
 solves a sparse Eigen system with a cached sparse Cholesky; here A is
 dense and the normal equations are prefactorized once with a dense
-Cholesky — on TPU the per-iteration work is then two matmuls and two
-triangular solves, all MXU/VPU friendly, inside a lax.while_loop with
+Cholesky — the per-iteration work is then two matmuls and two
+triangular solves, all accelerator friendly, inside a lax.while_loop with
 the reference's absolute/relative stopping rule.
 """
 

@@ -6,7 +6,7 @@ checks) and the FLANN 2-NN ratio filter used everywhere else
 (video_object_match/src/demo.cpp distRatio=0.9,
 correspondence_matching/examples/opencv_sift_matching.cc 1nn/2nn).
 
-TPU-native: the distance matrix is one MXU matmul; both nearest
+Batched design: the distance matrix is one matmul; both nearest
 neighbors come from a single top-2; masks handle padded keypoint slots.
 """
 

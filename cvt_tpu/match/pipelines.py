@@ -10,7 +10,7 @@ closure), ImagePairsFeatureMatcher (explicit list), and the
 match->verify pipeline that stores matches + two-view geometries in the
 Database and skips pairs already matched (matching.cc:829-836).
 
-TPU-native redesign: pair GENERATION is cheap host/NumPy logic (spatial
+Redesign: pair GENERATION is cheap host/NumPy logic (spatial
 knn is one device matmul); pair MATCHING is the hot path — descriptors
 are padded to a fixed [K, D] and matched by the jitted one-matmul 2-NN
 kernel (match.nn), one pair per call with shapes bucketed so XLA

@@ -4,7 +4,7 @@ Reference: vlindex/src/estimators/ — absolute_pose.{h,cc} (P3PEstimator,
 EPNPEstimator), essential_matrix decomposition + chirality
 (PoseFromEssentialMatrix in base/pose.cc), triangulation.{h,cc}.
 
-TPU-native redesign: no Groebner/Ceres polynomial machinery —
+Redesign: no Groebner/Ceres polynomial machinery —
   * P3P uses Grunert's quartic solved in CLOSED FORM (Ferrari +
     Cardano), elementwise ops only, so thousands of minimal problems
     solve as one vectorized call; each problem emits its <=4 candidate
@@ -25,7 +25,7 @@ _EPS = 1e-12
 
 
 # --------------------------------------------------------------------------
-# closed-form polynomial roots (elementwise -> TPU-friendly)
+# closed-form polynomial roots (elementwise, batch-friendly)
 # --------------------------------------------------------------------------
 
 def _cardano_real_root(b, c, d):
@@ -310,7 +310,7 @@ def pose_from_essential(e: jax.Array, x1: jax.Array, x2: jax.Array,
 # with known origins such that pairwise point distances are preserved,
 # then rig-from-world alignment).
 #
-# TPU-native solver: instead of the reference's Sylvester-resultant
+# Batched solver: instead of the reference's Sylvester-resultant
 # octic + Eigen companion eigenvalues, the depth lambda_0 of ray 0 is
 # found by a BATCHED branch scan — lambda_1(lambda_0) and
 # lambda_2(lambda_0) are closed-form quadratic roots (2 branches each),
@@ -483,13 +483,13 @@ def similarity_transform(src, dst, weights=None):
 # vlindex/src/estimators/generalized_relative_pose.cc (GR6P, Stewenius'
 # 64-solution minimal solver via Groebner bases + eigendecomposition).
 #
-# TPU-native solver: the LINEAR 17-point formulation (the generalized
+# Batched solver: the LINEAR 17-point formulation (the generalized
 # epipolar constraint is linear in the 18 entries of (E, R)):
 #     d2^T E d1 + d2^T R m1 + m2^T R d1 = 0
 # with Pluecker moments m = o x d. One batched SVD of the [N, 18]
 # design matrix gives (E, R) up to scale; R projects to SO(3) by SVD
 # and t comes from [t]x = E R^T. No Groebner machinery, vmappable, and
-# with RANSAC's redundancy the non-minimal sample costs nothing on TPU.
+# with RANSAC's redundancy the non-minimal sample costs nothing here.
 # ---------------------------------------------------------------------------
 
 
@@ -563,7 +563,7 @@ def ransac_generalized_relative_pose(key, o1, d1, o2, d2, valid=None, *,
     outlier rates (<~15% at the default 256 hypotheses) — raise
     n_hypotheses for dirtier matches. The reference's minimal GR6P
     (Groebner, 64 solutions) trades that robustness for a solver that
-    does not map to TPU; rig loop-closure candidates arriving from
+    does not batch; rig loop-closure candidates arriving from
     vocab-tree retrieval + per-pair verification are already mostly
     clean, which is this solver's regime."""
     o1 = jnp.asarray(o1, jnp.float32)

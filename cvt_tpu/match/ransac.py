@@ -4,7 +4,7 @@ Reference: vlindex `RANSAC<Estimator,SupportMeasurer,Sampler>` — the
 sequential adaptive-trial loop (optim/ransac.h:184-259, trial bound
 :159-169) and `LORANSAC` (optim/loransac.h:54).
 
-TPU-native redesign (SURVEY.md §7 hard part "data-dependent control
+Redesign (SURVEY.md §7 hard part "data-dependent control
 flow"): instead of a sequential loop with a data-dependent stopping rule,
 over-provision S hypotheses, solve them ALL as one batched minimal-solver
 call, score all S x N residuals in one broadcasted pass, pick the best
@@ -203,7 +203,7 @@ def ransac_preemptive(key, src, dst, valid=None, *, model: str = "affine",
                       n_survivors: int = 64, n_probe: int = 32,
                       lo_iters: int = 2,
                       min_inliers: int = 6) -> RansacResult:
-    """Two-stage preemptive RANSAC — the TPU analogue of SPRT
+    """Two-stage preemptive RANSAC — the batched analogue of SPRT
     (optim/sprt.h:45): instead of sequentially abandoning bad hypotheses
     by a probability-ratio test, ALL hypotheses are scored on a random
     n_probe-point subsample (cheap [S, n_probe] pass), the n_survivors

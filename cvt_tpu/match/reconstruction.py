@@ -6,7 +6,7 @@ substrate under feature matching (CorrespondenceGraph accumulates
 pairwise matches; Track chains observations of one 3D point across
 images; Reconstruction holds cameras/images/points3D).
 
-TPU-native redesign: the graph itself is irregular pointer-chasing, so
+Redesign: the graph itself is irregular pointer-chasing, so
 it stays host-side (numpy union-find instead of the reference's per-node
 adjacency lists, correspondence_graph.cc FindTransitiveCorrespondences);
 everything numerical is batched on device — multi-view DLT triangulation

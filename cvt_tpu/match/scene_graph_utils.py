@@ -4,9 +4,9 @@ Reference: retrieval/vlindex/src/base/{scene_clustering, visibility_
 pyramid, graph_cut}.{h,cc}. These back COLMAP's hierarchical mapper and
 next-best-view selection; they complete the SURVEY #14 base inventory.
 
-TPU-native redesign: the reference's Metis/BGL graph machinery becomes
+Redesign: the reference's Metis/BGL graph machinery becomes
 SPECTRAL partitioning — the normalized graph Laplacian's Fiedler vector
-is one dense eigh on the MXU (image match graphs are small: thousands
+is one dense eigh (image match graphs are small: thousands
 of nodes), recursively applied. The s-t min-cut is a host-side BFS
 max-flow (graphs are tiny and irregular — the reference links a whole
 Boykov-Kolmogorov library for this).

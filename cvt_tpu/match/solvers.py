@@ -6,7 +6,7 @@ vlindex estimators (affine_transform.h 3-pt DLT, homography_matrix 4-pt
 DLT with Hartley normalization).
 
 All solvers are batched: [S, n, 2] point sets -> [S, ...] models, so
-RANSAC evaluates every hypothesis in parallel on the MXU (lstsq/SVD over
+RANSAC evaluates every hypothesis in parallel (lstsq/SVD over
 small batched systems).
 """
 

@@ -7,7 +7,7 @@ the first keypoint's orientation) agrees across images, both within 10
 degrees (:37-96); `getInliers` builds the O(n^2) "brother" matrix
 (:103-124) and greedily extracts the max-degree quasi-clique (:129-151).
 
-TPU-native: the n^2 pairwise tests are one broadcasted tensor expression;
+Batched design: the n^2 pairwise tests are one broadcasted tensor expression;
 the greedy extraction is a lax.while_loop over masks with the degree
 computation as a matrix-vector product. Angle differences here are
 wrapped circularly (the reference compares raw degree differences, which

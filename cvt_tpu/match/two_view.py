@@ -7,7 +7,7 @@ CALIBRATED / UNCALIBRATED / PLANAR / PANORAMIC / PLANAR_OR_PANORAMIC /
 DEGENERATE; inliers of the winning model are the verified matches the
 matching pipeline stores.
 
-TPU-native: both models are estimated by the batched-hypothesis RANSACs
+Batched design: both models are estimated by the batched-hypothesis RANSACs
 (match.ransac / match.epipolar) under one fixed-shape jit; the
 classification itself is cheap host logic on two scalars, mirroring
 two_view_geometry.cc's H_F inlier-ratio rule (max_H_inlier_ratio 0.8).

@@ -12,7 +12,7 @@ inlier spread (ComputeEffectiveInlierCount :152-204) — which discounts
 bursts of co-located matches. Also GHT octave-histogram validation
 (video_object_match/src/GHT.cpp:157-180).
 
-TPU-native: votes are batched scatter-adds into SIX dense histograms (one
+Batched design: votes are batched scatter-adds into SIX dense histograms (one
 per level, same stride layout as the reference's shifted-coordinate
 index); per-bin pyramid scores come from static parent-index gathers; the
 refit reuses batched least-squares affine fits seeded from the top bins

@@ -1,6 +1,6 @@
 """Native (C++) host-side runtime components.
 
-The TPU compute path is JAX/Pallas; this package holds the host-side
+The device compute path is JAX/Pallas; this package holds the host-side
 native pieces the reference implements in C++ — currently the HNSW graph
 index (hnsw.cc) and the binary dataset reader (vecs_io.cc). Shared
 libraries are built lazily with the system compiler on first use and

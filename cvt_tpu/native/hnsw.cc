@@ -10,9 +10,9 @@
 // search at each layer, and the "keep if closer to query than to any
 // already-kept neighbor" diversity heuristic for link selection.
 //
-// Role in the TPU framework: the TPU-native replacement for graph ANN is
-// the flat Pallas ADC scan (cvt_tpu/ops/pallas/adc_scan.py) — HBM
-// bandwidth beats pointer chasing on this hardware. This module exists
+// Role in the framework: the batched replacement for graph ANN is the
+// flat packed ADC scan (cvt_tpu/ops/pallas/adc_scan.py) — device memory
+// bandwidth beats pointer chasing on an accelerator. This module exists
 // for the host-side runtime: small/latency-sensitive indexes, CPU-only
 // deployments, and parity experiments against the reference operating
 // point (M=32, efConstruction=80, IP space). Exposed to Python through

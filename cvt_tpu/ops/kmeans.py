@@ -1,10 +1,10 @@
-"""Batched Lloyd's k-means, the TPU-native replacement for yael kmeans.
+"""Batched Lloyd's k-means, the replacement for yael kmeans.
 
 The reference trains its coarse (K=8192) and product (K=256 x M subspaces)
 codebooks with yael's multithreaded CPU kmeans
 (opq/train_codebook/train_PQ_codebook.cpp:150-244, 64 OpenMP threads) and
 FLANN hierarchical k-means (retrieval/vlindex/src/retrieval/visual_index.h:624-665).
-Here every Lloyd iteration is two MXU matmuls:
+Here every Lloyd iteration is two matmuls:
   assign:  argmin_k ||x - c_k||^2 via the  x.c  expansion      [N,D]x[D,K]
   update:  new_c = onehot(assign)^T @ x / counts               [K,N]x[N,D]
 Empty-cluster repair mirrors the reference's check at
@@ -63,7 +63,7 @@ def kmeans_assign(x: jax.Array, centroids: jax.Array,
 def _blocked_argmin_chunk(xc, centroids, word_block):
     """Exact argmin over a HUGE centroid set without materializing the
     [T, K] distance matrix: scan over word blocks keeping a running
-    (best dist, best id). Pure MXU matmuls + VPU min — no gathers."""
+    (best dist, best id). Pure matmuls + elementwise min — no gathers."""
     k = centroids.shape[0]
     n_blocks = k // word_block
     x_sq = jnp.sum(jnp.square(xc), -1, keepdims=True)             # [T, 1]
@@ -76,9 +76,8 @@ def _blocked_argmin_chunk(xc, centroids, word_block):
         d = (x_sq - 2.0 * jnp.matmul(xc, cb.T,
                                      preferred_element_type=jnp.float32)
              + c_sq[None, :])                                     # [T, WB]
-        # argmin WITHOUT a variadic reduction (argmin/top_k lower to
-        # slow generic reducers on TPU): min first, then recover the
-        # index by equality + int-min — three cheap lane reductions
+        # argmin WITHOUT a variadic reduction: min first, then recover
+        # the index by equality + int-min — three cheap reductions
         db = jnp.min(d, -1)
         cols = jax.lax.broadcasted_iota(jnp.int32, d.shape, 1)
         a = jnp.min(jnp.where(d <= db[:, None], cols, jnp.int32(2**30)),
@@ -101,9 +100,9 @@ def kmeans_assign_blocked(x, centroids, *, chunk: int = 8192,
     one [N, K] distance matrix (e.g. the 1,048,576-word vocabulary,
     visual_index.h:624-665 / exe/vocab_tree.cc:74-78).
 
-    Scans centroid blocks with a running min: 2*N*K*D MXU flops total,
+    Scans centroid blocks with a running min: 2*N*K*D matmul flops total,
     peak memory one [chunk, word_block] block. At N=1M, K=1M, D=128 this
-    is ~256 TFLOP — a few seconds of MXU time — with zero gather traffic,
+    is ~256 TFLOP — a few seconds of matrix-unit time — with zero gather traffic,
     so EXACT assignment is practical where the reference needed an
     approximate FLANN tree. Returns (assign [N] i32, sq dist [N] f32).
     """
@@ -126,7 +125,7 @@ def kmeans_assign_blocked(x, centroids, *, chunk: int = 8192,
 
 
 def _update(x, assign, k):
-    """Centroid update via one-hot matmul (MXU). Returns (sums, counts)."""
+    """Centroid update via one-hot matmul. Returns (sums, counts)."""
     onehot = jax.nn.one_hot(assign, k, dtype=x.dtype)            # [N, K]
     sums = jnp.matmul(onehot.T, x, preferred_element_type=jnp.float32)
     counts = jnp.sum(onehot, axis=0, dtype=jnp.float32)          # [K]
@@ -208,7 +207,7 @@ def kmeans(key: jax.Array, x: jax.Array, k: int, *, iters: int = 25,
 
 
 # --------------------------------------------------------------------------
-# Hierarchical (two-level) k-means — the TPU replacement for FLANN's
+# Hierarchical (two-level) k-means — the batched replacement for FLANN's
 # hierarchical k-means tree (visual_index.h:624-665, branching=256): a
 # coarse level of k1 centroids, then an independent k2-means inside every
 # coarse cell. Total vocabulary k1*k2 words; training cost is O(N*k1 +

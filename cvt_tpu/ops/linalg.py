@@ -1,13 +1,17 @@
 """Normalization and pairwise-distance primitives.
 
-TPU-native replacements for the reference's scalar/SIMD math:
+Batched replacements for the reference's scalar/SIMD math:
   * L2 normalization: cvt `MathUtil::L2NormVec` (utils/math_util.h:15-40,
     eps guard) and the RootSIFT L2 step (hnsw_sifts_retrieval/makeSIFTs.cpp:79-95).
   * Inner-product / L2 distance scans: cvt's hand-rolled AVX kernels
     `InnerProductSIMD16Ext` (brute_force_search/src/space_ip.hpp:134-208) and
     `L2SqrSIMD16Ext` (hnsw_sifts_retrieval/hnswlib/space_l2.h:41-151).
-    On TPU the whole scan is one MXU contraction `[B,D] x [D,N]`; the
+    Here the whole scan is one contraction `[B,D] x [D,N]`; the
     `||x||^2 - 2<x,c> + ||c||^2` expansion keeps it matmul-shaped.
+
+The products default to Precision.HIGHEST: these scans are the ground
+truth of every recall figure, and a GPU would otherwise run a float32
+product in TF32.
 """
 
 from __future__ import annotations
@@ -27,11 +31,15 @@ def l2_normalize(x: jax.Array, axis: int = -1, eps: float = EPS) -> jax.Array:
     return x * jax.lax.rsqrt(sq + eps)
 
 
-def pairwise_ip(q: jax.Array, db: jax.Array, *, precision=None) -> jax.Array:
+HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def pairwise_ip(q: jax.Array, db: jax.Array, *,
+                precision=HIGHEST) -> jax.Array:
     """Inner products between all query/database pairs.
 
-    q: [B, D], db: [N, D] -> [B, N]. One MXU matmul — the TPU-native
-    equivalent of cvt's AVX `InnerProduct*` kernel looped over N.
+    q: [B, D], db: [N, D] -> [B, N]. One matmul — the batched equivalent
+    of cvt's AVX `InnerProduct*` kernel looped over N.
     """
     return jnp.matmul(q, db.T, precision=precision,
                       preferred_element_type=jnp.float32)
@@ -39,11 +47,11 @@ def pairwise_ip(q: jax.Array, db: jax.Array, *, precision=None) -> jax.Array:
 
 def pairwise_l2sq(q: jax.Array, db: jax.Array, *,
                   db_sqnorm: jax.Array | None = None,
-                  precision=None) -> jax.Array:
+                  precision=HIGHEST) -> jax.Array:
     """Squared L2 distances between all query/database pairs.
 
     q: [B, D], db: [N, D] -> [B, N] via the matmul expansion
-    ||q||^2 - 2 q.db + ||db||^2 so the O(B*N*D) work rides the MXU.
+    ||q||^2 - 2 q.db + ||db||^2 so the O(B*N*D) work is one matmul.
     `db_sqnorm` ([N]) may be precomputed once per database.
     """
     qn = jnp.sum(jnp.square(q), axis=-1, keepdims=True)          # [B, 1]

@@ -1,39 +1,47 @@
-"""Fused Pallas ADC scan: streamed PQ-code decode + score matmul + top-k.
+"""Flat ADC scan: int8 decoded rows x int8 queries -> packed segment minima.
 
-This kernel IS the north-star metric (BASELINE.json): it replaces both the
-reference's IVF probe heap (opq/src/IVFOPQ.cpp:237-309) and hnswlib's
-graph walk (hnswalg.h:218-282) with a flat HBM-resident code scan.
+The scan behind FlatADCIndex, FlatSQIndex.search_fast, IVFADCIndex
+.search_fast and the sharded searcher and server. It replaces the
+reference's per-point LUT-gather loop (opq/src/IVFOPQ.cpp:300-309) and
+hnswlib's graph walk with one batched scan of the whole database.
 
-Per grid tile of TILE_N code rows (auto-pipelined HBM->VMEM):
-  1. DECODE-FIRST (the TPU-native ADC formulation): subspace codes become
-     one-hot [K, T] int8 masks contracted with int8-quantized transposed
-     codebooks on the MXU, writing a decoded [D, T] int8 tile into VMEM
-     scratch. The per-subspace dequant scale is folded into the QUERY
-     operand (and squared into the norm reduction), so the decode stays
-     pure int8. Cost 2*K*D flops/row amortized over the WHOLE query
-     batch — versus the CPU LUT-sum's per-query gather loop (2*M*K*B per
-     row). Subspaces are grouped block-diagonally so the decode matmul
-     uses all 128 MXU sublanes (g*ds = 128).
-  2. SCORE: int8 x int8 -> int32 MXU matmuls (double the bf16 rate) of
-     the decoded tile against symmetrically-quantized queries (one
-     runtime scale qs), over B_sub-query subtiles. Row norms are folded
-     in as an int32 column (round(norm/qs)), so scoring is exact integer
-     arithmetic in the qs-scaled space.
-  3. SELECT (packed): the int32 score is packed as  score*seg + lane  —
-     an EXACT lexicographic (distance, position) key, since scores are
-     integers — so one min-reduce yields the per-128-row segment min AND
-     its argmin in a single pass (round 2 spent ~40% of search time on a
-     separate eq/where/min arg chain plus a [B, N/seg] transpose+top_k).
-     The kernel additionally emits each tile's best-two packed segment
-     candidates, so the XLA-side top_k runs on [B, 2*n_tiles] — spt/2 x
-     smaller than the segment-min matrix. Exactness: top-1 exact; for
-     k <= seg, a tile must hold >= 3 true top-k winners (P ~
-     C(k,3)*(tile/N)^2) or a segment >= 2 (P ~ C(k,2)*seg/N) before any
-     winner is displaced; exact=True re-scores whole winning segments.
+Scoring. Every database row is an int8 vector `dec` (PQ codes decoded
+through int8-quantized codebooks, or SQ codes shifted to int8) with a
+per-dimension dequant scale `srow`. The query batch is folded into an
+int8 operand q2s with one runtime scale qs per block of queries (the
+scan's query block, _query_block; q2s * qs ~= -2 q srow), so
 
-Measured on one chip (chained in-jit timing, 1M x 64-bit codes, B=4096):
-phase 1 + selection ~7 ms (>550k QPS). Cross-checked against the
-pure-XLA engine in tests/test_pallas.py.
+    ||q - srow*dec||^2 ~= ||q||^2 + qs * (<dec, q2s> + norm/qs)
+
+and the bracket is an exact integer: an int8 x int8 -> int32 product
+(|dec|, |q2s| <= 127 and D <= 1024 keep every sum below 2^24) plus an
+integer norm column, one per query block. A query's result depends only
+on its own block, so a large batch quantizes a query no more coarsely
+than a batch of one block.
+
+Selection (packed keys). The integer score is packed as
+
+    key = score * seg + lane,   lane = row % seg
+
+an exact lexicographic (distance, position) key, so one min over a
+segment of `seg` rows gives its best distance AND its argmin. The scan
+returns the [B, N/seg] segment minima and never writes the [B, N] score
+matrix. Selection then takes the k best segments per query, ranked
+exactly on their keys: exact top-1 always, and for k > 1 a segment
+holding two true winners contributes only its best; exact=True re-scores
+the k+slack best segments in float32.
+
+Two implementations compute identical keys:
+  * `_segmin_pallas` — one Pallas kernel (Triton route). A program owns a
+    block of `bn` rows, loads it once and loops over the query batch in
+    blocks of `bq`, reducing each [bq, bn] score tile to segment minima
+    in registers. An optional page vector lets each program read its own
+    block index (the IVF union-probe scan).
+  * `_segmin_xla` — the plain twin: the same operands, an int32 matmul
+    per query block and a reshape-and-min, left to XLA.
+Both write [B, N/seg] directly: nothing transposes the minima before
+top_k, whose GPU kernel takes its operand row-major.
+`cvt_tpu.ops.backend.scan_route` chooses between them.
 """
 
 from __future__ import annotations
@@ -44,27 +52,26 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-BIG = 3.4e38  # finite +inf stand-in (inf arithmetic is slow on the VPU)
-# packed-int sentinels: valid packed keys stay well under _PACK_INVALID
-_IMAX = 2_147_000_000
+from jax.experimental.pallas import triton as pl_triton
 
 
 def _pack_caps(seg: int, d: int) -> tuple[int, int]:
     """(valid norm cap, invalid norm marker) for score*seg+lane packing.
 
-    Derived from the ACTUAL contraction depth d (not a hard-coded D=128):
     |ip| <= ipb = 127*127*d. The invariants are
       max valid key  = (vcap + ipb)*seg + seg-1  <  min invalid key
       min invalid key = (ibase - ipb)*seg
       max invalid key = (ibase + ipb)*seg + seg-1  <  2^31
-    all satisfied by vcap = 2^31//seg - 3*ipb - 2*seg, ibase = vcap +
-    2*ipb + 1. Raises when (seg, d) leaves no headroom instead of
+    all satisfied by vcap <= 2^31//seg - 3*ipb - 2*seg, ibase = vcap +
+    2*ipb + 1. The ranking view (_rank_keys) also needs the span from
+    the lowest key, -ipb*seg, to the lowest invalid key to fit the
+    positive normal float32 range: vcap <= (2^31 - 2^24 - 1)//seg -
+    2*ipb - 1. Raises when (seg, d) leaves no headroom instead of
     silently wrapping int32 keys.
     """
     ipb = 127 * 127 * d
-    vcap = (2 ** 31) // seg - 3 * ipb - 2 * seg
+    vcap = min((2 ** 31) // seg - 3 * ipb - 2 * seg,
+               (2 ** 31 - 2 ** 24 - 1) // seg - 2 * ipb - 1)
     ibase = vcap + 2 * ipb + 1
     if vcap <= 0:
         raise ValueError(
@@ -73,545 +80,351 @@ def _pack_caps(seg: int, d: int) -> tuple[int, int]:
     return vcap, ibase
 
 
-def _adc_segmin_kernel(nv_ref, qs_ref, codes_ref, cbt_ref, q2_ref, s2_ref,
-                       segpack_ref, tiletop_ref, onehot_ref, dect_ref, *,
-                       m, k_sub, ds, group, tile_n, seg, b_sub):
-    """Phase-1 kernel: int8 decode + score a tile, emit packed segment
-    minima and the tile's best-two candidates.
-
-    Segment lemma: a query's k-th smallest distance tau bounds the
-    segments of interest — every candidate <= tau lies in a segment whose
-    min <= tau, and at most k segments have min <= tau; the same lemma at
-    tile granularity bounds how many tiles matter. Emitting each tile's
-    best TWO segment keys keeps all top-k winners unless a single tile
-    holds three of them (vanishing probability at tile << N/k).
-
-    Everything runs in [T, B] orientation: the (T, B) -> (T/seg, seg, B)
-    reshape splits SUBLANES, which is layout-free on TPU (the [B, T]
-    orientation's lane-split reshape forced a full relayout per subtile
-    and made large-B runs 5x slower). Scoring loops over B_sub-query
-    subtiles so one decoded tile serves arbitrarily large query batches
-    without growing the [T, B_sub] live range.
-    """
-    i = pl.program_id(0)
-    t = tile_n
-    g = group
-    spt = t // seg                     # segments per tile
-    b = q2_ref.shape[0]
-    vcap, ibase = _pack_caps(seg, dect_ref.shape[0])
-    seg_bits = seg.bit_length() - 1
-    assert seg == 1 << seg_bits, "packed path requires power-of-two seg"
-
-    for gi in range(m // g):
-        # one-hot built per subspace as [k_sub, T] int8 blocks of the
-        # [g*k_sub, T] scratch (avoids a [g*k, T] int32 iota temporary)
-        for j in range(g):
-            kk = jax.lax.broadcasted_iota(jnp.int32, (k_sub, t), 0)
-            onehot_ref[j * k_sub:(j + 1) * k_sub, :] = (
-                kk == codes_ref[g * gi + j, :].reshape(1, t)
-            ).astype(jnp.int8)
-        dec_g = jax.lax.dot_general(
-            cbt_ref[gi], onehot_ref[:, :],
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            # int8 x int8 -> int32: native double-rate MXU mode; a global
-            # jax_default_matmul_precision=highest would inject
-            # contract_precision=fp32, which Mosaic rejects
-            precision=jax.lax.Precision.DEFAULT,
-            preferred_element_type=jnp.int32)            # [g*ds, T]
-        dect_ref[gi * g * ds:(gi + 1) * g * ds, :] = dec_g.astype(
-            jnp.int8)                                    # |v|<=127: exact
-
-    dec = dect_ref[:, :]                                 # [D, T] int8
-    dec32 = dec.astype(jnp.float32)
-    # ||scale * dec||^2 as a [T, 1] column via a 1-wide MXU matmul against
-    # the per-dim squared scales (keeps [T, B] orientation, no transposes)
-    norm = jax.lax.dot_general(
-        dec32 * dec32, s2_ref[:, :],
-        dimension_numbers=(((0,), (0,)), ((), ())),
-        precision=jax.lax.Precision.HIGHEST,
-        preferred_element_type=jnp.float32)              # [T, 1]
-    base = i * t
-    row = jax.lax.broadcasted_iota(jnp.int32, (t, 1), 0)
-    qs = qs_ref[0]
-    # integer norm column in the qs-scaled space; invalid rows (runtime
-    # n_valid through SMEM — same executable serves any database size and
-    # per-shard validity under shard_map) get a sentinel that keeps their
-    # packed keys strictly above every valid key
-    norm_i = jnp.clip(jnp.round(norm / qs), 0.0,
-                      jnp.float32(vcap)).astype(jnp.int32)
-    norm_i = jnp.where(base + row < nv_ref[0], norm_i, jnp.int32(ibase))
-    # fold the lane id into the norm column: packed = (ip + norm_i)*seg
-    # + lane, an exact lexicographic (score, lane) key
-    base_col = norm_i * seg + jax.lax.rem(row, seg)      # [T, 1]
-
-    rows_spt = jax.lax.broadcasted_iota(jnp.int32, (spt, b_sub), 0)
-    for bs in range(b // b_sub):
-        # int8 x int8 -> int32 score at the MXU's double int8 rate;
-        # int32 accumulation is exact, so the packed key is exact too
-        ip = jax.lax.dot_general(
-            dec, q2_ref[bs * b_sub:(bs + 1) * b_sub, :],
-            dimension_numbers=(((0,), (1,)), ((), ())),
-            precision=jax.lax.Precision.DEFAULT,
-            preferred_element_type=jnp.int32)            # [T, b_sub]
-        # shift, not multiply: 32-bit integer multiply is emulated on the
-        # VPU and costs more than the whole min-reduce
-        pk = jax.lax.shift_left(ip, seg_bits) + base_col
-        p3 = pk.reshape(spt, seg, b_sub)     # sublane split: layout-free
-        pmins = jnp.min(p3, axis=1)                      # [spt, b_sub]
-        segpack_ref[:, bs * b_sub:(bs + 1) * b_sub] = pmins
-        # tile-level best-two candidates (tiny [spt, b_sub] VPU work);
-        # rows 2/3 carry the FULL row-in-tile (subrow*seg + lane, via
-        # shift/and — exact under two's complement) so selection never
-        # needs to unpack the int keys
-        m1 = jnp.min(pmins, axis=0)                      # [b_sub]
-        sel1 = pmins == m1[None, :]
-        r1 = jnp.min(jnp.where(sel1, rows_spt, spt), axis=0)
-        masked = jnp.where(sel1, _IMAX, pmins)
-        m2 = jnp.min(masked, axis=0)
-        r2 = jnp.min(jnp.where(masked == m2[None, :], rows_spt, spt),
-                     axis=0)
-        lane1 = jax.lax.bitwise_and(m1, seg - 1)
-        lane2 = jax.lax.bitwise_and(m2, seg - 1)
-        sl = slice(bs * b_sub, (bs + 1) * b_sub)
-        tiletop_ref[0, 0, sl] = m1
-        tiletop_ref[0, 1, sl] = m2
-        tiletop_ref[0, 2, sl] = jax.lax.shift_left(r1, seg_bits) + lane1
-        tiletop_ref[0, 3, sl] = jax.lax.shift_left(r2, seg_bits) + lane2
+def padded_dim(d: int) -> int:
+    """Operand width the kernel takes: a power of two, at least 32 (the
+    int8 tensor-core product's depth). Extra columns are zeros."""
+    return max(32, 1 << (d - 1).bit_length())
 
 
-@functools.partial(
-    jax.jit, static_argnames=("tile_n", "seg", "group", "interpret"))
-def _adc_segmin(q2s, qs, codes_t, cbt_q, s2, n_valid, tile_n, seg, group,
-                interpret):
-    """Phase 1 -> (segpack [Npad/seg, B] i32, tiletop [T, 8, B] i32).
-
-    segpack rows are packed (score*seg + lane) segment minima; tiletop
-    rows 0/1 are each tile's two best packed keys, rows 2/3 the segment
-    sub-rows they came from (rows 4-7 pad Mosaic's 8-sublane block).
-    q2s [Bpad, D] int8 = quantize(-2 * q * scale_row); qs f32 scalar
-    dequant scale; cbt_q [G, g*ds, g*K] int8 block-diagonal transposed
-    codebooks; s2 [D, 1] f32 = scale_row^2. n_valid may be a python int
-    OR a traced scalar — it reaches the kernel through SMEM, as does qs.
-    """
-    b, d = q2s.shape
-    mpad, npad = codes_t.shape
-    grp, gds, gk = cbt_q.shape
-    ds = gds // group
-    k_sub = gk // group
-    m = grp * group
-    n_tiles = npad // tile_n
-    # scoring subtile: largest power-of-two <= 1024 dividing Bpad (Bpad is
-    # always a multiple of 128)
-    b_sub = 1024
-    while b % b_sub:
-        b_sub //= 2
-
-    kernel = functools.partial(
-        _adc_segmin_kernel, m=m, k_sub=k_sub, ds=ds, group=group,
-        tile_n=tile_n, seg=seg, b_sub=b_sub)
-    out_rows = tile_n // seg
-    nv = jnp.full((1,), n_valid, jnp.int32)
-    qsa = jnp.full((1,), qs, jnp.float32)
-    segpack, tiletop = pl.pallas_call(
-        kernel,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((mpad, tile_n), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((out_rows, b), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 8, b), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((npad // seg, b), jnp.int32),
-            jax.ShapeDtypeStruct((n_tiles, 8, b), jnp.int32),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((group * k_sub, tile_n), jnp.int8),
-            pltpu.VMEM((d, tile_n), jnp.int8),
-        ],
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * npad * (k_sub * d * group + d * b),
-            bytes_accessed=npad * mpad * 4 + b * npad // seg * 4,
-            transcendentals=0,
-        ),
-    )(nv, qsa, codes_t, cbt_q, q2s, s2)
-    return segpack, tiletop
+def _query_block(b: int) -> int:
+    """Queries per inner step: a power of two in [16, 128]."""
+    return min(128, max(16, 1 << (b - 1).bit_length()))
 
 
-def _unpack(packed, seg: int):
-    """packed i32 key -> (score i32, lane i32). Exact for any sign of
-    score: lane = floor-mod(packed, seg)."""
-    lane = jnp.mod(packed, seg)
-    score = (packed - lane) // seg
-    return score, lane
+def quantize_codebooks(codebooks):
+    """[M, K, ds] f32 -> (cb_q [M, K, ds] int8, srow [M*ds] f32).
+
+    Per-dimension symmetric int8 quantization over the K codewords; the
+    scale is folded into the query operand at search time, so the decoded
+    rows stay pure int8."""
+    cb = np.asarray(codebooks, np.float32)
+    scales = np.maximum(np.abs(cb).max(axis=1) / 127.0, 1e-12)  # [M, ds]
+    cb_q = np.clip(np.rint(cb / scales[:, None, :]), -127, 127)
+    return cb_q.astype(np.int8), scales.reshape(-1).astype(np.float32)
 
 
-@functools.partial(jax.jit, static_argnames=("k", "seg", "n_valid"))
-def _rescore_segments(q, q_sq, seg_ids, codes, dec_sq, codebooks, k, seg,
-                      n_valid):
-    """Phase 2 (XLA): exact f32 ADC re-score of the k chosen segments.
-
-    seg_ids [B, S]; codes [Npad, M] u8; dec_sq [Npad] f32. Returns the
-    final (dists [B, k], ids [B, k]) with full-precision LUT scoring.
-    """
-    b, s = seg_ids.shape
-    m, k_sub, ds = codebooks.shape
-    # gather candidate rows: [B, S*seg]
-    rows = (seg_ids[:, :, None] * seg
-            + jnp.arange(seg, dtype=jnp.int32)[None, None, :])
-    rows = rows.reshape(b, s * seg)
-    cand_codes = codes[rows].astype(jnp.int32)           # [B, C, M]
-    cand_dsq = dec_sq[rows]                              # [B, C]
-    # per-query LUT of -2 <q_m, cb[m,k]>  (f32)
-    qs = q.reshape(b, m, ds)
-    lut = -2.0 * jnp.einsum("bms,mks->bmk", qs, codebooks,
-                            preferred_element_type=jnp.float32)
-    g = jnp.take_along_axis(
-        lut, cand_codes.transpose(0, 2, 1), axis=2)      # [B, M, C]
-    dist = jnp.sum(g, axis=1) + cand_dsq + q_sq[:, None]
-    dist = jnp.where(rows < n_valid, dist, jnp.inf)
-    neg, j = jax.lax.top_k(-dist, k)
-    ids = jnp.take_along_axis(rows, j, axis=-1)
-    return -neg, ids
+@functools.partial(jax.jit, static_argnames=("d_pad",))
+def decode_int8(codes, cb_q, d_pad: int):
+    """codes [N, M] u8 -> [N, d_pad] int8 rows of the quantized codebooks
+    (zero columns beyond M*ds). A gather: sharded codes give sharded
+    rows."""
+    m, _, ds = cb_q.shape
+    dec = cb_q[jnp.arange(m)[None, :], codes.astype(jnp.int32)]
+    return jnp.pad(dec.reshape(codes.shape[0], m * ds),
+                   ((0, 0), (0, d_pad - m * ds)))
 
 
-def _fold_queries(q, srow, norm_cap=None, vcap: int | None = None):
-    """q [B, D] f32 -> (q2s [Bpad, D] int8, qs f32 scalar) with
-    q2s * qs ~= -2 * q * scale_row, padded to B % 128 == 0.
+@jax.jit
+def int8_row_norms(codes, cb_q, srow):
+    """||srow * dec||^2 per code row: the scan's norm column, in the
+    quantized space it scores."""
+    m, _, ds = cb_q.shape
+    cbn = jnp.sum(jnp.square(cb_q.astype(jnp.float32)
+                             * srow.reshape(m, 1, ds)), axis=-1)   # [M, K]
+    return jnp.sum(cbn[jnp.arange(m)[None, :], codes.astype(jnp.int32)],
+                   axis=-1)
 
-    Symmetric per-BATCH quantization: one runtime scale for the whole
-    query operand keeps the kernel's dequant a single scalar on the
-    int32 score, preserving exact integer packing.
 
-    norm_cap (with vcap) clamps qs from BELOW so that the kernel's
-    integer norm column round(norm/qs) can never exceed vcap: a
-    low-magnitude query batch against large-norm database rows would
-    otherwise silently saturate every large norm to vcap and corrupt
-    ranking. Raising qs merely coarsens query quantization — a graceful
-    degradation instead of a silent one."""
-    b = q.shape[0]
-    bpad = -(-b // 128) * 128
-    q2 = -2.0 * q * srow[None, :]
-    qs = jnp.max(jnp.abs(q2)) / 127.0
+def _fold_queries(q, srow, d_pad: int, norm_cap=None,
+                  vcap: int | None = None):
+    """q [B, D] f32 -> (q2s [Bpad, d_pad] int8, qs [Bpad/bq] f32) with
+    q2s * qs ~= -2 * q * srow, B padded to whole query blocks of bq
+    (_query_block) and one scale per block.
+
+    One symmetric scale per query block keeps the dequant a single scalar
+    on each block's int32 scores, so the packing stays exact. norm_cap
+    (with vcap) clamps qs from below so that the integer norm column
+    round(norm/qs) never exceeds vcap: a low-magnitude block against
+    large-norm rows would otherwise saturate every large norm and corrupt
+    the ranking. Raising qs only coarsens the query quantization."""
+    b, d = q.shape
+    bq = _query_block(b)
+    bpad = -(-b // bq) * bq
+    q2 = jnp.pad(-2.0 * q * srow[None, :], ((0, bpad - b), (0, 0)))
+    qs = jnp.max(jnp.abs(q2).reshape(bpad // bq, bq * d), axis=1) / 127.0
     qs = jnp.maximum(qs, 1e-30)
     if norm_cap is not None:
         qs = jnp.maximum(qs, jnp.float32(norm_cap) / vcap)
-    q2s = jnp.clip(jnp.round(q2 / qs), -127.0, 127.0).astype(jnp.int8)
-    if bpad != b:
-        q2s = jnp.pad(q2s, ((0, bpad - b), (0, 0)))
-    return q2s, qs
+    q2s = jnp.clip(jnp.round(q2 / jnp.repeat(qs, bq)[:, None]),
+                   -127.0, 127.0).astype(jnp.int8)
+    return jnp.pad(q2s, ((0, 0), (0, d_pad - d))), qs
 
 
-def _select_tiletop(segpack, tiletop, qs, q_sq, b, k, tile_n, seg,
-                    n_valid=None):
-    """Shared selection tail: packed tile-top2 candidates -> (dist, ids).
+def _base_column(norm, qs, n_valid, seg: int, cap: int, marker: int):
+    """[Bpad/bq, N] int32 (norm_i * seg + lane), one row per query block
+    scale qs; rows at or beyond n_valid (traced or static) get the
+    marker, which ranks them after every valid row."""
+    rows = jnp.arange(norm.shape[0], dtype=jnp.int32)
+    norm_i = jnp.clip(jnp.round(norm[None, :] / qs[:, None]), 0.0,
+                      jnp.float32(cap)).astype(jnp.int32)
+    norm_i = jnp.where(rows < n_valid, norm_i, jnp.int32(marker))
+    return norm_i * seg + rows % seg
 
-    Ranks via f32 keys (int32 top_k lowers to a generic sort ~10x
-    slower; the f32 cast is monotone — ties within one ulp are already
-    inside the key's rounding noise); ids come from the row-in-tile
-    sidecar, so nothing is ever unpacked from the big arrays."""
-    n_tiles = tiletop.shape[0]
-    spt = tile_n // seg
-    # only tiles overlapping real rows can contribute candidates: a
-    # database padded far beyond n_valid (e.g. 4k rows in a 16k pad)
-    # must fall back to segment-minima selection or the top-2-per-tile
-    # cap truncates the candidate pool below k and padding sentinels
-    # leak into the tail of the results
-    real_tiles = (n_tiles if n_valid is None
-                  else min(n_tiles, -(-int(n_valid) // tile_n)))
-    if 2 * real_tiles < k or spt < 2:
-        # tiny database: flat selection over all packed segment minima
-        neg, j = jax.lax.top_k(-segpack.T[:b], min(k, segpack.shape[0]))
-        packed = -neg
-        score, lane = _unpack(packed, seg)
-        ids = j * seg + lane
-        dist = score.astype(jnp.float32) * qs + q_sq[:, None]
-        if ids.shape[1] < k:
-            pad = ((0, 0), (0, k - ids.shape[1]))
-            dist = jnp.pad(dist, pad, constant_values=BIG)
-            ids = jnp.pad(ids, pad, constant_values=np.int32(2 ** 30))
-        return dist, ids
-    packs = jnp.concatenate([tiletop[:, 0, :], tiletop[:, 1, :]],
-                            axis=0)                      # [2T, Bpad]
-    rows = jnp.concatenate([tiletop[:, 2, :], tiletop[:, 3, :]], axis=0)
-    neg, j = jax.lax.top_k(-packs.astype(jnp.float32).T[:b], k)
-    tile = jnp.where(j < n_tiles, j, j - n_tiles)
-    rowint = jnp.take_along_axis(rows.T[:b], j, axis=-1)
-    ids = tile * tile_n + rowint
-    dist = (-neg / seg) * qs + q_sq[:, None]
+
+# ----------------------------------------------------------------- kernel
+def _segmin_kernel(*refs, bn, bq, seg, n_qblocks, n_rows, lp, paged):
+    """One program: a block of bn database rows against the whole query
+    batch, in query blocks of bq; writes [B, bn/seg] packed minima. The
+    base column is flat [n_qblocks * n_rows]: one row per query block."""
+    j = pl.program_id(0)
+    if paged:
+        pages_ref, q_ref, dec_ref, base_ref, out_ref = refs
+        per_page = lp // bn
+        # the program reads its own page id: an inverted-list visit
+        row0 = pages_ref[j // per_page] * lp + (j % per_page) * bn
+    else:
+        q_ref, dec_ref, base_ref, out_ref = refs
+        row0 = j * bn
+    dec = dec_ref[pl.ds(row0, bn), :]                     # [bn, D] int8
+    nsb = bn // seg
+    seg_bits = seg.bit_length() - 1
+
+    def body(qb, carry):
+        q = q_ref[pl.ds(qb * bq, bq), :]                  # [bq, D] int8
+        base = base_ref[pl.ds(qb * n_rows + row0, bn)]    # [bn] int32
+        # int8 x int8 -> int32 on the tensor cores: exact, so the packed
+        # key is exact too
+        ip = jax.lax.dot_general(
+            q, dec, (((1,), (1,)), ((), ())),
+            precision=jax.lax.Precision.DEFAULT,
+            preferred_element_type=jnp.int32)             # [bq, bn]
+        pk = jax.lax.shift_left(ip, seg_bits) + base[None, :]
+        out_ref[pl.ds(qb * bq, bq), pl.ds(j * nsb, nsb)] = jnp.min(
+            pk.reshape(bq, nsb, seg), axis=2)
+        return carry
+
+    jax.lax.fori_loop(0, n_qblocks, body, 0)
+
+
+def _row_block(seg: int, lp: int | None, n_rows: int) -> int:
+    """Rows per program, measured on an H100 (PERF.md): 256 for the flat
+    scan (a 32 KB int8 tile, 4096 programs at 1M rows, two minima per
+    query row per store at seg=128), 128 over IVF pages; less where the
+    row count demands; at least one segment."""
+    bn = max(128 if lp is not None else 256, seg)
+    if lp is not None:
+        bn = min(bn, lp)
+    while n_rows % bn:
+        bn //= 2
+    if bn < seg or bn < 16:
+        raise ValueError(f"rows {n_rows} not a multiple of seg {seg}")
+    return bn
+
+
+@functools.partial(jax.jit, static_argnames=("seg", "lp", "interpret"))
+def _segmin_pallas(q2s, dec, base, pages=None, *, seg, lp=None,
+                   interpret=False):
+    b = q2s.shape[0]
+    n_qblocks = base.shape[0]
+    bq = b // n_qblocks
+    paged = pages is not None
+    n_rows = dec.shape[0]
+    bn = _row_block(seg, lp, lp if paged else n_rows)
+    n_prog = pages.shape[0] * (lp // bn) if paged else n_rows // bn
+    kernel = functools.partial(
+        _segmin_kernel, bn=bn, bq=bq, seg=seg, n_qblocks=n_qblocks,
+        n_rows=n_rows, lp=lp, paged=paged)
+    args = ([pages] if paged else []) + [q2s, dec, base.reshape(-1)]
+
+    def whole(x):
+        return pl.BlockSpec(x.shape, lambda j, nd=x.ndim: (0,) * nd)
+
+    n_seg = n_prog * bn // seg
+    return pl.pallas_call(
+        kernel,
+        grid=(n_prog,),
+        in_specs=[whole(x) for x in args],
+        out_specs=pl.BlockSpec((b, n_seg), lambda j: (0, 0)),
+        out_shape=jax.ShapeDtypeStruct((b, n_seg), jnp.int32),
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=4,
+                                                 num_stages=2),
+        interpret=interpret,
+        name="adc_segmin",
+    )(*args)
+
+
+@functools.partial(jax.jit, static_argnames=("seg", "lp"))
+def _segmin_xla(q2s, dec, base, pages=None, *, seg, lp=None):
+    """Plain twin of _segmin_pallas: page gather, int32 product,
+    reshape-and-min — no hand fusion. Query blocks go through lax.map so
+    that one [block, N] score matrix stays near 256 MB."""
+    b, d = q2s.shape
+    if pages is not None:
+        rows = (pages[:, None] * lp
+                + jnp.arange(lp, dtype=jnp.int32)[None, :]).reshape(-1)
+        dec, base = dec[rows], base[:, rows]
+    n = dec.shape[0]
+    bq = b // base.shape[0]
+    bt = bq
+    while bt > 1 and bt * n > (1 << 26):
+        bt //= 2
+    seg_bits = seg.bit_length() - 1
+
+    def one(xs):
+        q_blk, blk = xs
+        ip = jax.lax.dot_general(
+            q_blk, dec, (((1,), (1,)), ((), ())),
+            preferred_element_type=jnp.int32)             # [bt, N]
+        pk = jax.lax.shift_left(ip, seg_bits) + base[blk * bt // bq][None, :]
+        return jnp.min(pk.reshape(bt, n // seg, seg), axis=2)
+
+    out = jax.lax.map(one, (q2s.reshape(b // bt, bt, d),
+                            jnp.arange(b // bt, dtype=jnp.int32)))
+    return out.reshape(b, n // seg)
+
+
+def segmin(q2s, dec, base, *, seg: int, route: str, pages=None,
+           lp: int | None = None):
+    """Packed segment minima [Bpad, N/seg (or S*lp/seg)] int32.
+
+    q2s [Bpad, D] int8 folded queries; dec [N, D] int8 decoded rows;
+    base [Bpad/bq, N] int32 from _base_column, one row per query block of
+    bq = Bpad / base.shape[0] queries; pages [S] int32 optional page ids
+    of lp rows each (scan only those pages, in that order). route is
+    'pallas' | 'interpret' | 'xla' (cvt_tpu.ops.backend)."""
+    if route == "xla":
+        return _segmin_xla(q2s, dec, base, pages, seg=seg, lp=lp)
+    if route not in ("pallas", "interpret"):
+        raise ValueError(f"unknown route {route!r}")
+    return _segmin_pallas(q2s, dec, base, pages, seg=seg, lp=lp,
+                          interpret=route == "interpret")
+
+
+# -------------------------------------------------------------- selection
+def _unpack(packed, seg: int):
+    """packed i32 key -> (score i32, lane i32); exact for either sign."""
+    lane = jnp.mod(packed, seg)
+    return (packed - lane) // seg, lane
+
+
+def _rank_keys(keys, invalid_from: int, seg: int, d: int):
+    """Exact order-preserving float32 view of packed int32 keys.
+
+    XLA's top_k is fast on floats, but a plain cast rounds keys near
+    2^31 to 256-wide buckets, and which of the tied keys wins is then up
+    to the top_k implementation. Instead, keys (invalid ones clamped to
+    invalid_from) are shifted into the positive normal float32 range and
+    bitcast: distinct keys stay distinct and keep their order
+    (_pack_caps sizes the range)."""
+    shift = 127 * 127 * d * seg + 2 ** 23
+    return jax.lax.bitcast_convert_type(
+        jnp.minimum(keys, invalid_from) + shift, jnp.float32)
+
+
+def _select_segments(segpack, qs, q_sq, b: int, k: int, seg: int,
+                     invalid_from: int, d: int):
+    """Fast-path selection: the k best segments per query ARE the
+    results, ranked exactly on their packed keys. qs [b]: each query's
+    block scale."""
+    keys = segpack[:b]                                    # [b, n_seg]
+    kk = min(k, keys.shape[1])
+    _, j = jax.lax.top_k(-_rank_keys(keys, invalid_from, seg, d), kk)
+    packed = jnp.take_along_axis(keys, j, axis=-1)
+    order = jnp.argsort(packed, axis=-1)
+    packed = jnp.take_along_axis(packed, order, axis=-1)
+    j = jnp.take_along_axis(j, order, axis=-1)
+    score, lane = _unpack(packed, seg)
+    ok = packed < invalid_from
+    ids = jnp.where(ok, j * seg + lane, -1)
+    dist = jnp.where(ok, score.astype(jnp.float32) * qs[:, None]
+                     + q_sq[:, None], jnp.inf)
+    if kk < k:
+        pad = ((0, 0), (0, k - kk))
+        dist = jnp.pad(dist, pad, constant_values=jnp.inf)
+        ids = jnp.pad(ids, pad, constant_values=-1)
     return dist, ids
 
 
-@functools.partial(
-    jax.jit, static_argnames=("k", "n_valid", "tile_n", "seg", "group",
-                              "interpret"))
-def _adc_search_fast(q, codes_t, cbt_q, srow, k, n_valid, tile_n, seg,
-                     group, interpret):
-    """One fused jit: query prep + packed kernel + tile-top2 selection.
+def _rescore_segments(q, q_sq, seg_ids, codes, dec_sq, codebooks, k, seg,
+                      n_valid):
+    """Exact path: float32 LUT-ADC re-score of the chosen segments.
 
-    The kernel already reduced each tile to its best two packed
-    (score, lane) keys, so selection is a top_k over [B, 2*n_tiles]
-    followed by integer unpacking — no big transposes, no arg gathers.
-    """
-    b = q.shape[0]
-    q_sq = jnp.sum(jnp.square(q), axis=-1)
-    # analytic bound on quantized-space row norms: |dec_d| <= 127, so
-    # norm = sum (srow_d * dec_d)^2 <= 127^2 * ||srow||^2 — clamping qs
-    # below norm_bound/vcap guarantees the kernel's norm column never
-    # saturates (see _fold_queries)
-    vcap, _ = _pack_caps(seg, q.shape[1])
+    seg_ids [B, S]; codes [N, M] u8; dec_sq [N] f32. Returns the final
+    (dists [B, k], ids [B, k])."""
+    b, s = seg_ids.shape
+    m, _, ds = codebooks.shape
+    n = codes.shape[0]
+    rows = (seg_ids[:, :, None] * seg
+            + jnp.arange(seg, dtype=jnp.int32)[None, None, :])
+    rows = rows.reshape(b, s * seg)
+    safe = jnp.clip(rows, 0, n - 1)
+    cand_codes = codes[safe].astype(jnp.int32)             # [B, C, M]
+    lut = -2.0 * jnp.einsum("bms,mks->bmk", q.reshape(b, m, ds), codebooks,
+                            precision=jax.lax.Precision.HIGHEST,
+                            preferred_element_type=jnp.float32)
+    g = jnp.take_along_axis(lut, cand_codes.transpose(0, 2, 1), axis=2)
+    dist = jnp.sum(g, axis=1) + dec_sq[safe] + q_sq[:, None]
+    dist = jnp.where(rows < n_valid, dist, jnp.inf)
+    neg, j = jax.lax.top_k(-dist, k)
+    ids = jnp.take_along_axis(rows, j, axis=-1)
+    return -neg, jnp.where(jnp.isfinite(neg), ids, -1)
+
+
+def _prepare(q, norm, srow, n_valid, seg: int, d_pad: int):
+    """Query fold and norm column shared by every search on the scan.
+    Returns (q2s, per-query scale [Bpad], base, invalid_from)."""
+    d = q.shape[1]
+    vcap, ibase = _pack_caps(seg, d)
+    # |dec| <= 127 bounds every row norm by 127^2 ||srow||^2; the bound
+    # depends on the codebooks alone, so every shard of a sharded scan
+    # folds its queries with the same qs
     norm_bound = 127.0 ** 2 * jnp.sum(jnp.square(srow))
-    q2s, qs = _fold_queries(q, srow, norm_bound, vcap)
-    s2 = (srow * srow)[:, None]
-    segpack, tiletop = _adc_segmin(q2s, qs, codes_t, cbt_q, s2, n_valid,
-                                   tile_n, seg, group, interpret)
-    return _select_tiletop(segpack, tiletop, qs, q_sq, b, k, tile_n, seg,
-                           n_valid)
+    q2s, qs = _fold_queries(q, srow, d_pad, norm_bound, vcap)
+    base = _base_column(norm, qs, n_valid, seg, vcap, ibase)
+    qs_rows = jnp.repeat(qs, q2s.shape[0] // qs.shape[0])
+    return q2s, qs_rows, base, (ibase - 127 * 127 * d) * seg
+
+
+@functools.partial(jax.jit, static_argnames=("seg", "route"))
+def packed_keys(q, dec, norm, srow, n_valid, *, route: str, seg: int = 128):
+    """The scan's raw result for queries q: packed segment minima
+    [Bpad, Npad/seg] int32 (module docstring). Every route gives the same
+    keys bit for bit."""
+    q2s, _, base, _ = _prepare(q.astype(jnp.float32), norm, srow, n_valid,
+                               seg, dec.shape[1])
+    return segmin(q2s, dec, base, seg=seg, route=route)
 
 
 @functools.partial(
-    jax.jit, static_argnames=("k", "n_valid", "tile_n", "seg", "group",
-                              "slack", "interpret"))
-def _adc_search_exact(q, codes_t, cbt_q, srow, codes, dec_sq, codebooks, k,
-                      n_valid, tile_n, seg, group, slack, interpret):
+    jax.jit, static_argnames=("k", "seg", "route", "exact", "slack"))
+def _adc_search(q, dec, norm, srow, n_valid, codes, dec_sq, codebooks, *,
+                k, seg, route, exact, slack):
     b = q.shape[0]
+    q = q.astype(jnp.float32)
     q_sq = jnp.sum(jnp.square(q), axis=-1)
-    vcap, _ = _pack_caps(seg, q.shape[1])
-    norm_bound = 127.0 ** 2 * jnp.sum(jnp.square(srow))
-    q2s, qs = _fold_queries(q, srow, norm_bound, vcap)
-    s2 = (srow * srow)[:, None]
-    segpack, _ = _adc_segmin(q2s, qs, codes_t, cbt_q, s2, n_valid,
-                             tile_n, seg, group, interpret)
-    # packed keys rank identically to segment minima, so segment
-    # selection needs no unpacking
-    n_seg_take = min(k + slack, segpack.shape[0])
-    _, seg_ids = jax.lax.top_k(-segpack.T[:b], n_seg_take)   # [B, S]
+    q2s, qs, base, invalid_from = _prepare(q, norm, srow, n_valid, seg,
+                                           dec.shape[1])
+    segpack = segmin(q2s, dec, base, seg=seg, route=route)
+    d = q.shape[1]
+    if not exact:
+        return _select_segments(segpack, qs[:b], q_sq, b, k, seg,
+                                invalid_from, d)
+    n_take = min(k + slack, segpack.shape[1])
+    _, seg_ids = jax.lax.top_k(
+        -_rank_keys(segpack[:b], invalid_from, seg, d), n_take)
     return _rescore_segments(q, q_sq, seg_ids, codes, dec_sq, codebooks,
                              k, seg, n_valid)
 
 
-def adc_search(q, q_sq, codes, dec_sq, codebooks, k, n_valid, *,
-               codes_t=None, cbt_q=None, srow=None, group=None,
-               tile_n: int | None = None, seg: int = 128,
-               slack: int = 4, exact: bool = False,
-               interpret: bool | None = None):
-    """Two-phase fused ADC search: Pallas packed segment scan + selection.
+def adc_search(q, dec, norm, srow, k: int, n_valid, *, route: str,
+               seg: int = 128, exact: bool = False, codes=None,
+               dec_sq=None, codebooks=None, slack: int = 4):
+    """Two-phase flat ADC search over a packed segment scan.
 
-    Fast path (default): the top-k packed tile candidates ARE the
-    results — exact top-1 always; for k > 1 a segment holding two true
-    winners contributes only its best and a tile holding three
-    contributes only two (both vanishing at scale). exact=True re-scores
-    the k+slack winning segments in f32 for guaranteed exact top-k
-    w.r.t. phase-1 quantized scoring. Any k <= seg. q_sq may be None
-    (recomputed inside the fused jit).
-    """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    b, d = q.shape
-    if codes_t is None:
-        ct = jnp.asarray(codes).astype(jnp.int32).T
-        m = ct.shape[0]
-        mpad = -(-m // 8) * 8
-        codes_t = (jnp.pad(ct, ((0, mpad - m), (0, 0))) if mpad != m else ct)
-    npad = codes_t.shape[1]
-    if tile_n is None:
-        # measured on v5e at N=1M/B=8192: tile 2048 is ~12% faster than
-        # 1024 (13.5 vs 15.1 ms/batch) with bit-identical results; 4096
-        # regresses to 1024's speed. Fall back when npad isn't divisible.
-        tile_n = 2048 if npad % 2048 == 0 else 1024
-    if npad % tile_n:
-        raise ValueError(f"npad {npad} must be a multiple of {tile_n}")
+    q [B, D] f32 (rotated space); dec [Npad, Dpad] int8 decoded rows
+    (decode_int8); norm [Npad] f32 quantized-space row norms; srow [D]
+    per-dim dequant scales; n_valid real rows, static or traced (a
+    shard_map body passes its shard's count; ids are then local to the
+    shard). Fast path (default): the k best segments are the results
+    (int8-scored distances). exact=True re-scores the k+slack best
+    segments in float32 from codes [N, M], dec_sq [N] and codebooks;
+    exact top-k w.r.t. full-precision ADC unless a true winner sits
+    outside them. Requires k <= seg."""
     if k > seg:
-        raise ValueError(f"two-phase path requires k <= seg ({seg})")
-    if cbt_q is None:
-        cbt_q, srow, group = _group_codebooks(codebooks)
-    q = jnp.asarray(q, jnp.float32)
-
-    if not exact:
-        return _adc_search_fast(q, codes_t, cbt_q, srow, k, n_valid,
-                                tile_n, seg, group, interpret)
-    return _adc_search_exact(q, codes_t, cbt_q, srow, jnp.asarray(codes),
-                             dec_sq, codebooks, k, n_valid, tile_n, seg,
-                             group, slack, interpret)
-
-
-def _adc_segmin_cached_kernel(nv_ref, qs_ref, dec_ref, norm_ref, q2_ref,
-                              segpack_ref, tiletop_ref, *, tile_n, seg,
-                              b_sub):
-    """Phase-1 kernel over a PRE-DECODED int8 database tile: identical
-    packed scoring/top2 to _adc_segmin_kernel, minus the one-hot build
-    and decode matmul (the decoded [D, Npad] int8 cache is 16x the code
-    bytes — see FlatADCIndex.build_decoded_cache)."""
-    i = pl.program_id(0)
-    t = tile_n
-    spt = t // seg
-    b = q2_ref.shape[0]
-    vcap, ibase = _pack_caps(seg, dec_ref.shape[0])
-    seg_bits = seg.bit_length() - 1
-    assert seg == 1 << seg_bits
-
-    dec = dec_ref[:, :]                                  # [D, T] int8
-    norm = norm_ref[:, :]                                # [T, 1] f32
-    base = i * t
-    row = jax.lax.broadcasted_iota(jnp.int32, (t, 1), 0)
-    qs = qs_ref[0]
-    norm_i = jnp.clip(jnp.round(norm / qs), 0.0,
-                      jnp.float32(vcap)).astype(jnp.int32)
-    norm_i = jnp.where(base + row < nv_ref[0], norm_i, jnp.int32(ibase))
-    base_col = norm_i * seg + jax.lax.rem(row, seg)      # [T, 1]
-
-    rows_spt = jax.lax.broadcasted_iota(jnp.int32, (spt, b_sub), 0)
-    for bs in range(b // b_sub):
-        ip = jax.lax.dot_general(
-            dec, q2_ref[bs * b_sub:(bs + 1) * b_sub, :],
-            dimension_numbers=(((0,), (1,)), ((), ())),
-            precision=jax.lax.Precision.DEFAULT,
-            preferred_element_type=jnp.int32)            # [T, b_sub]
-        pk = jax.lax.shift_left(ip, seg_bits) + base_col
-        p3 = pk.reshape(spt, seg, b_sub)
-        pmins = jnp.min(p3, axis=1)
-        segpack_ref[:, bs * b_sub:(bs + 1) * b_sub] = pmins
-        m1 = jnp.min(pmins, axis=0)
-        sel1 = pmins == m1[None, :]
-        r1 = jnp.min(jnp.where(sel1, rows_spt, spt), axis=0)
-        masked = jnp.where(sel1, _IMAX, pmins)
-        m2 = jnp.min(masked, axis=0)
-        r2 = jnp.min(jnp.where(masked == m2[None, :], rows_spt, spt),
-                     axis=0)
-        lane1 = jax.lax.bitwise_and(m1, seg - 1)
-        lane2 = jax.lax.bitwise_and(m2, seg - 1)
-        sl = slice(bs * b_sub, (bs + 1) * b_sub)
-        tiletop_ref[0, 0, sl] = m1
-        tiletop_ref[0, 1, sl] = m2
-        tiletop_ref[0, 2, sl] = jax.lax.shift_left(r1, seg_bits) + lane1
-        tiletop_ref[0, 3, sl] = jax.lax.shift_left(r2, seg_bits) + lane2
-
-
-@functools.partial(
-    jax.jit, static_argnames=("tile_n", "seg", "interpret"))
-def _adc_segmin_cached(q2s, qs, dec8_t, norm_col, n_valid, tile_n, seg,
-                      interpret):
-    """Phase 1 over the decoded cache -> (segpack, tiletop) like
-    _adc_segmin. dec8_t [D, Npad] int8; norm_col [Npad, 1] f32."""
-    b, d = q2s.shape
-    npad = dec8_t.shape[1]
-    n_tiles = npad // tile_n
-    b_sub = 1024
-    while b % b_sub:
-        b_sub //= 2
-    kernel = functools.partial(_adc_segmin_cached_kernel, tile_n=tile_n,
-                               seg=seg, b_sub=b_sub)
-    out_rows = tile_n // seg
-    nv = jnp.full((1,), n_valid, jnp.int32)
-    qsa = jnp.full((1,), qs, jnp.float32)
-    segpack, tiletop = pl.pallas_call(
-        kernel,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((d, tile_n), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_n, 1), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((out_rows, b), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 8, b), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((npad // seg, b), jnp.int32),
-            jax.ShapeDtypeStruct((n_tiles, 8, b), jnp.int32),
-        ),
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * npad * d * b,
-            bytes_accessed=npad * d + b * npad // seg * 4,
-            transcendentals=0,
-        ),
-    )(nv, qsa, dec8_t, norm_col, q2s)
-    return segpack, tiletop
-
-
-@functools.partial(
-    jax.jit, static_argnames=("k", "n_valid", "tile_n", "seg",
-                              "interpret"))
-def adc_search_cached(q, dec8_t, norm_col, srow, k, n_valid,
-                      tile_n: int | None = None, seg: int = 128,
-                      interpret: bool = False):
-    """Fast search over the int8 decoded cache (decode-free scan).
-
-    Same result semantics as the default fast path (identical int8
-    scoring up to f32 round-off in the precomputed norms). q [B, D]
-    raw ROTATED space; dec8_t [D, Npad] int8; norm_col [Npad, 1] f32
-    quantized-space row norms; srow the per-dim dequant scales.
-    """
-    b = q.shape[0]
-    npad = dec8_t.shape[1]
-    if tile_n is None:
-        # measured on v5e at N=1M/B=8192 through the decoded cache:
-        # tile 4096 runs at 880k QPS while 1024/2048 fall off a Mosaic
-        # performance cliff (~7k QPS) for the [D=128, T] int8 operand —
-        # the wide decoded tile needs the larger block to schedule the
-        # int8 matmul on the MXU. 8192 exceeds VMEM.
-        #
-        # Accuracy tradeoff: each tile emits its top-2 candidates, so the
-        # chance the true winner set concentrates >2 hits in one tile
-        # scales ~(tile_n/N)^2. On small databases the big tile is both
-        # unnecessary (the scan is cheap anyway) and 16x riskier than
-        # 1024, so keep the tile at most npad/64 when that is possible —
-        # callers chasing peak QPS on small N can still pass tile_n=4096.
-        choices = [t for t in (4096, 2048, 1024) if npad % t == 0]
-        fitting = [t for t in choices if t * 64 <= npad]
-        tile_n = fitting[0] if fitting else (
-            choices[-1] if choices else 1024)
-    q_sq = jnp.sum(jnp.square(q), axis=-1)
-    # the cached path has the norms in hand: clamp qs below max(norm)/vcap
-    vcap, _ = _pack_caps(seg, dec8_t.shape[0])
-    q2s, qs = _fold_queries(q, srow, jnp.max(norm_col), vcap)
-    segpack, tiletop = _adc_segmin_cached(q2s, qs, dec8_t, norm_col,
-                                          n_valid, tile_n, seg, interpret)
-    return _select_tiletop(segpack, tiletop, qs, q_sq, b, k, tile_n, seg,
-                           n_valid)
-
-
-def _group_codebooks(codebooks) -> tuple[jax.Array, jax.Array, int]:
-    """[M, K, ds] f32 -> (cbt_q [G, g*ds, g*K] int8 block-diagonal
-    transposed codebooks, srow [D] f32 per-dim dequant scales, g).
-
-    Per-subspace symmetric int8 quantization: cb[m] / scale[m] rounded to
-    [-127, 127]; the scale is folded into the query operand at search time
-    (and squared into the norm reduction), so decode stays pure int8.
-    g is chosen so g*ds = 128 — the full MXU sublane count (measured ~2x
-    faster than minimal 16-sublane grouping despite block-diagonal zeros).
-    """
-    m, k_sub, ds = codebooks.shape
-    cb = np.asarray(codebooks, np.float32)
-    g = max(1, min(m, 128 // ds))
-    while m % g:
-        g -= 1
-    # PER-DIM symmetric scales (max over the K codewords only): measured
-    # top-1 agreement with the f32 ADC engine jumps vs per-subspace scales
-    scales = np.abs(cb).max(axis=1) / 127.0               # [M, ds]
-    scales = np.maximum(scales, 1e-12)
-    cb_q = np.clip(np.rint(cb / scales[:, None, :]), -127, 127)
-    cbt = np.zeros((m // g, g * ds, g * k_sub), np.int8)
-    for mm in range(m):
-        gi, j = divmod(mm, g)
-        cbt[gi, j * ds:(j + 1) * ds, j * k_sub:(j + 1) * k_sub] = (
-            cb_q[mm].T.astype(np.int8))
-    srow = scales.reshape(m * ds).astype(np.float32)      # [D]
-    return jnp.asarray(cbt), jnp.asarray(srow), g
+        raise ValueError(f"packed scan requires k <= seg ({seg})")
+    if exact and codes is None:
+        raise ValueError("exact=True needs codes, dec_sq and codebooks")
+    return _adc_search(q, dec, norm, srow, n_valid, codes, dec_sq,
+                       codebooks, k=k, seg=seg, route=route, exact=exact,
+                       slack=slack)

@@ -1,37 +1,32 @@
-"""Fused Pallas IVF-ADC scan: union-probe page gather + MXU scoring.
+"""IVF-ADC union-probe scan: the flat packed scan over the probed pages.
 
-Replaces the pure-XLA probed scan (`index/ivf_adc.py:_probed_scores`,
-the round-3 judge's "one genuinely slow component": per-(query, probe)
-bucket gathers + per-element LUT `take_along_axis` are catastrophic on
-TPU — see the reference list walk it models, opq/src/IVFOPQ.cpp:300-309).
-
-TPU-native redesign ("union-probe scan"):
+Replaces the pure-XLA probed scan (`index/ivf_adc.py:_probed_scores`:
+per-(query, probe) bucket gathers + per-element LUT `take_along_axis`),
+the batched form of the reference's list walk (opq/src/IVFOPQ.cpp:300-309).
 
   * The database is stored SORTED BY COARSE CELL, each cell padded to a
     multiple of `seg` rows (segment-pure: every seg-row segment belongs
-    to exactly one cell), as a DECODED int8 residual cache [D, N'] plus
-    per-row reconstruction norms — so scoring needs NO decode and NO
-    LUT: one int8 MXU matmul per page against the whole query batch.
+    to exactly one cell), as a DECODED int8 residual cache [N', D] plus
+    per-row reconstruction norms — so scoring needs no decode and no LUT:
+    one int8 product per page against the whole query batch.
   * A query batch's probed cells are resolved to the UNION of pages
-    (pages = fixed 512-row tiles of the sorted array) in XLA; the kernel
-    grid runs over the selected pages only, with the page id
-    scalar-prefetched into the BlockSpec index_map — the Pallas version
-    of an inverted-list walk, but each "list visit" is a 64 KB DMA + a
-    [T, B] MXU matmul shared by every query in the batch.
+    (fixed 512-row tiles of the sorted array) in XLA; the scan
+    (cvt_tpu.ops.pallas.adc_scan.segmin) runs over the selected pages
+    only, each program reading its own page id — an inverted-list walk
+    where every "list visit" is shared by every query of the batch.
   * dist(q, row) = ||q||^2 + ||c + d||^2 - 2<q, c> - 2<q, d>: the
-    residual term -2<q, d> is the int8 matmul; the norm ||c + d||^2
-    rides a per-row f32 column; the coarse term -2<q, c> is constant per
-    (segment, query) and enters as a per-segment int32 row correction.
-    EXACT per-query nprobe semantics: segments of cells a query did NOT
-    probe get a marker correction that ranks them below every real
-    candidate (so the union scan returns exactly the probed lists'
-    top-k, not a batch-union superset).
+    residual term -2<q, d> is the int8 product; the norm ||c + d||^2
+    rides the per-row norm column; the coarse term -2<q, c> is constant
+    per (segment, query), so it is added AFTER the segment minimum
+    (min(p + c) = min(p) + c). EXACT per-query nprobe semantics: segments
+    of cells a query did NOT probe get a marker that ranks them below
+    every real candidate.
   * Selection: the k+slack best SEGMENTS per query by packed minimum
     are rescored whole in f32 from an int16 decode cache — exact
-    distances out, and no per-tile sidecar work in the kernel.
+    distances out.
 
 Integer packing budget (key = (ip + norm_i + cip_i) * seg + lane):
-  ip      in [-ipb, ipb],   ipb  = 127*127*D   (int8 matmul bound)
+  ip      in [-ipb, ipb],   ipb  = 127*127*D   (int8 product bound)
   norm_i  in [0, nvcap]     valid rows; pad rows get marker NIB
   cip_i   in [0, cipb]      probed segments; unprobed get marker CIB
 with NIB = CIB = nvcap + 3*ipb + 1 and
@@ -48,8 +43,10 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+
+from cvt_tpu.ops.pallas.adc_scan import (_fold_queries, _rank_keys,
+                                         padded_dim, quantize_codebooks,
+                                         segmin)
 
 BIG = 3.4e38
 
@@ -66,6 +63,8 @@ def _ivf_pack_caps(seg: int, d: int) -> tuple[int, int]:
       keep norm<=NIB XOR cip<=CIB large, never both: pad rows' cip is
       clipped to CIB only when ALSO masked, giving NIB+CIB+ipb — the
       budget below covers that worst case too)
+    marker*seg is below 2^30, so adc_scan._rank_keys ranks these keys
+    exactly as well.
     """
     ipb = 127 * 127 * d
     a = (2 ** 31) // seg
@@ -79,97 +78,17 @@ def _ivf_pack_caps(seg: int, d: int) -> tuple[int, int]:
     return nvcap, marker
 
 
-def _ivf_page_kernel(sel_ref, qs_ref, dec_ref, nrm_ref, cip_ref, q2_ref,
-                     segpack_ref, *, lp, seg, b_sub, d):
-    """Score one selected page [D, Lp] against the query batch.
-
-    Mirrors adc_scan._adc_segmin_cached_kernel's scoring, plus the
-    per-segment coarse-term row cip_ref [spt, B] (f32; BIG = masked/
-    unprobed) and norm markers carried in nrm_ref (f32; BIG = pad row).
-    Emits packed segment minima only — phase 2 reselects and rescores
-    whole segments, so no per-tile best-two sidecar is needed.
-    """
-    spt = lp // seg
-    b = q2_ref.shape[0]
-    nvcap, marker = _ivf_pack_caps(seg, d)
-    seg_bits = seg.bit_length() - 1
-    assert seg == 1 << seg_bits
-
-    dec = dec_ref[:, :]                                   # [D, Lp] int8
-    qs = qs_ref[0]
-    # per-row norm column; pad rows (BIG) clip to the marker exactly
-    norm_i = jnp.clip(jnp.round(nrm_ref[:, :] / qs), 0.0,
-                      jnp.float32(marker)).astype(jnp.int32)   # [Lp, 1]
-    row = jax.lax.broadcasted_iota(jnp.int32, (lp, 1), 0)
-    base_col = jax.lax.shift_left(norm_i, seg_bits) \
-        + jax.lax.rem(row, seg)                           # [Lp, 1]
-    # per-segment coarse correction (pre-shifted); masked entries clip
-    # to the marker
-    cip_i = jnp.clip(jnp.round(cip_ref[:, :] / qs), 0.0,
-                     jnp.float32(marker)).astype(jnp.int32)    # [spt, B]
-    cip_sh = jax.lax.shift_left(cip_i, seg_bits)
-
-    for bs in range(b // b_sub):
-        ip = jax.lax.dot_general(
-            dec, q2_ref[bs * b_sub:(bs + 1) * b_sub, :],
-            dimension_numbers=(((0,), (1,)), ((), ())),
-            precision=jax.lax.Precision.DEFAULT,
-            preferred_element_type=jnp.int32)             # [Lp, b_sub]
-        pk = jax.lax.shift_left(ip, seg_bits) + base_col
-        p3 = pk.reshape(spt, seg, b_sub)     # sublane split: layout-free
-        p3 = p3 + cip_sh[:, None, bs * b_sub:(bs + 1) * b_sub]
-        segpack_ref[:, bs * b_sub:(bs + 1) * b_sub] = jnp.min(p3, axis=1)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("lp", "seg", "interpret"))
-def _ivf_pages_segmin(q2s, qs, dec8_t, nrm_col, cip, sel, lp, seg,
-                      interpret):
-    """Phase 1 over the selected pages -> segpack [S*spt, B]."""
-    b, d = q2s.shape
-    s = sel.shape[0]
-    spt = lp // seg
-    b_sub = 1024
-    while b % b_sub:
-        b_sub //= 2
-    kernel = functools.partial(_ivf_page_kernel, lp=lp, seg=seg,
-                               b_sub=b_sub, d=d)
-    qsa = jnp.full((1,), qs, jnp.float32)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(s,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((d, lp), lambda i, sel_ref: (0, sel_ref[i]),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((lp, 1), lambda i, sel_ref: (sel_ref[i], 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((spt, b), lambda i, sel_ref: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((spt, b), lambda i, sel_ref: (i, 0),
-                               memory_space=pltpu.VMEM),
-    )
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((s * spt, b), jnp.int32),
-        interpret=interpret,
-    )(sel, qsa, dec8_t, nrm_col, cip, q2s)
-
-
 @functools.partial(
     jax.jit,
     static_argnames=("nprobe", "k", "max_pages", "lp", "seg", "exact_probe",
-                     "slack", "interpret"))
-def ivf_union_search(q, centroids, dec8_t, dec16_rm, srow16, nrm_col,
+                     "slack", "route"))
+def ivf_union_search(q, centroids, dec8, dec16_rm, srow16, nrm_col,
                      seg_cell, rowids, srow, dsq_min, nprobe, k, max_pages,
                      lp=512, seg=32, exact_probe=True, slack=6,
-                     interpret=False):
+                     route="xla"):
     """Batched IVF-ADC top-k via the union-probe page scan.
 
-    q [B, D] raw space; centroids [Kc, D]; dec8_t [D, N'] int8 decoded
+    q [B, D] raw space; centroids [Kc, D]; dec8 [N', Dpad] int8 decoded
     residual cache (cell-sorted, segment-pure); dec16_rm [N', D] an
     int16 row-major decode (per-dim scale srow16) for phase-2 rescoring
     — 256x finer than int8, so rescored distances match the f32 LUT
@@ -177,27 +96,28 @@ def ivf_union_search(q, centroids, dec8_t, dec16_rm, srow16, nrm_col,
     ||c + d||^2 - dsq_min (BIG on pad rows); seg_cell [N'/seg] i32
     owning cell per segment (-1 = dead); rowids [N'] i32 original vector
     ids (-1 = pad); srow [D] per-dim dequant scales of the residual
-    codebooks. Returns (dists [B, k], ids [B, k] with -1 padding).
+    codebooks; route as in cvt_tpu.ops.backend. Returns (dists [B, k],
+    ids [B, k] with -1 padding, number of probed pages dropped for want
+    of max_pages).
 
     exact_probe=True masks each query to its OWN nprobe lists (reference
     semantics, IVFOPQ.cpp:237-309); False scans the batch union —
     same cost, recall >= exact.
 
-    Phase 2: the packed kernel ranks SEGMENT minima; the k+slack best
-    segments per query are re-scored exactly in f32 (IVF lists per query
-    are few pages, so the flat kernel's best-two-per-tile shortcut would
-    truncate; the rescore also makes the returned distances exact ADC
-    distances, not int8-quantized ones).
+    Phase 2: the scan ranks SEGMENT minima; the k+slack best segments per
+    query are re-scored exactly in f32, so the returned distances are
+    exact ADC distances, not int8-quantized ones.
     """
     b, d = q.shape
-    n_rows = dec8_t.shape[1]
+    n_rows = dec8.shape[0]
     n_pages = n_rows // lp
     spt = lp // seg
     kc = centroids.shape[0]
     nvcap, marker = _ivf_pack_caps(seg, d)
 
-    # ---- probe selection (one MXU matmul) + page union ------------------
+    # ---- probe selection (one matmul) + page union ----------------------
     coarse_ip = jnp.matmul(q, centroids.T,
+                           precision=jax.lax.Precision.HIGHEST,
                            preferred_element_type=jnp.float32)    # [B, Kc]
     c_sq = jnp.sum(jnp.square(centroids), axis=-1)
     q_sq = jnp.sum(jnp.square(q), axis=-1)
@@ -214,44 +134,52 @@ def ivf_union_search(q, centroids, dec8_t, dec16_rm, srow16, nrm_col,
     live = slot < jnp.sum(page_probed)          # fill slots fully masked
     n_dropped = jnp.maximum(jnp.sum(page_probed) - s_max, 0)
 
-    # ---- per-segment coarse correction rows [S*spt, B] ------------------
+    # ---- per-segment coarse correction columns [B, S*spt] ---------------
     sel_segs = sel[:, None] * spt + jnp.arange(spt)[None, :]      # [S,spt]
     cells = seg_cell[sel_segs.reshape(-1)]                        # [S*spt]
     cent_sel = centroids[jnp.clip(cells, 0, kc - 1)]              # [.., D]
     cip = -2.0 * jnp.matmul(q, cent_sel.T,
-                            preferred_element_type=jnp.float32).T  # [S*spt,B]
-    c0 = jnp.min(jnp.where(cells[:, None] >= 0, cip, BIG), axis=0)
-    cipz = cip - c0[None, :]
+                            precision=jax.lax.Precision.HIGHEST,
+                            preferred_element_type=jnp.float32)   # [B,S*spt]
+    c0 = jnp.min(jnp.where(cells[None, :] >= 0, cip, BIG), axis=1)
+    cipz = cip - c0[:, None]
     if exact_probe:
-        hit = jnp.any(cells[:, None, None] == probes[None, :, :], axis=-1)
-        cipz = jnp.where(hit, cipz, BIG)                          # [S*spt,B]
+        hit = jnp.any(probes[:, None, :] == cells[None, :, None], axis=-1)
+        cipz = jnp.where(hit, cipz, BIG)                          # [B,S*spt]
     dead = (cells < 0) | ~jnp.repeat(live, spt, total_repeat_length=
                                      s_max * spt)
-    cipz = jnp.where(dead[:, None], BIG, cipz)
+    cipz = jnp.where(dead[None, :], BIG, cipz)
 
     # ---- query fold with marker-safe qs clamps --------------------------
     # the clamps must reach _fold_queries BEFORE q2s is quantized: raising
     # qs afterwards would leave ip in score/qs_old units while norm_i and
     # cip_i use qs_new — mixed units corrupt the packed ranking exactly in
     # the regime the clamps defend against
-    from cvt_tpu.ops.pallas.adc_scan import _fold_queries
     max_nrm = jnp.max(jnp.where(nrm_col < BIG / 2, nrm_col, 0.0))
     max_cip = jnp.max(jnp.where(cipz < BIG / 2, cipz, 0.0))
     qs_min = jnp.maximum(max_nrm / nvcap, max_cip / (127 * 127 * d))
-    q2s, qs = _fold_queries(q, srow, qs_min, 1)
-
-    segpack = _ivf_pages_segmin(q2s, qs, dec8_t, nrm_col, cipz,
-                                sel.astype(jnp.int32), lp, seg,
-                                interpret)
+    q2s, qs = _fold_queries(q, srow, dec8.shape[1], qs_min, 1)
+    seg_bits = seg.bit_length() - 1
+    # per-row norm column, one row per query block's scale; pad rows
+    # (BIG) clip to the marker exactly
+    rowsel = jnp.arange(n_rows, dtype=jnp.int32)
+    norm_i = jnp.clip(jnp.round(nrm_col[None, :, 0] / qs[:, None]), 0.0,
+                      jnp.float32(marker)).astype(jnp.int32)
+    base = jax.lax.shift_left(norm_i, seg_bits) + rowsel % seg
+    segpack = segmin(q2s, dec8, base, seg=seg, route=route,
+                     pages=sel.astype(jnp.int32), lp=lp)   # [Bpad, S*spt]
+    # per-segment coarse term, added after the segment minimum; masked
+    # entries clip to the marker
+    qs_rows = jnp.repeat(qs, q2s.shape[0] // qs.shape[0])[:b]
+    cip_i = jnp.clip(jnp.round(cipz / qs_rows[:, None]), 0.0,
+                     jnp.float32(marker)).astype(jnp.int32)
+    segpack = segpack[:b] + jax.lax.shift_left(cip_i, seg_bits)
 
     # ---- phase 2: exact f32 rescore of the winning segments -------------
-    n_take = min(k + slack, segpack.shape[0])
-    # f32 keys for the segment top-k: int32 top_k lowers to a generic
-    # sort ~10x slower on TPU (measured +7.8 ms here); the cast is
-    # monotone, and any 128-ulp ties it introduces are among segments
-    # whose quantized minima differ by < 128*qs — absorbed by the slack
-    # and settled exactly in the rescore
-    _, seg_sel = jax.lax.top_k(-segpack.T[:b].astype(jnp.float32),
+    n_take = min(k + slack, segpack.shape[1])
+    # every key from the marker's lowest up ranks as one invalid key
+    invalid_from = (marker - 127 * 127 * d) * seg
+    _, seg_sel = jax.lax.top_k(-_rank_keys(segpack, invalid_from, seg, d),
                                n_take)                   # [B, S2] sel-order
     # fill slots duplicate page 0; their segments must not re-enter in
     # phase 2 (the kernel already ranked them at the marker, but with
@@ -269,8 +197,7 @@ def ivf_union_search(q, centroids, dec8_t, dec16_rm, srow16, nrm_col,
     cells_c = seg_cell[rows // seg]                      # [B, C]
     dec_c = dec16_rm[rows].astype(jnp.float32)           # [B, C, D]
     qf = q * srow16[None, :]
-    # broadcast-mul + lane reduce instead of a batched-matvec einsum
-    # (dot_general with a size-1 output column lowers poorly here)
+    # broadcast-mul + reduce: exact float32, no matmul precision mode
     ip = jnp.sum(dec_c * qf[:, None, :], axis=-1)        # <q, residual>
     cipv = -2.0 * jnp.take_along_axis(
         coarse_ip, jnp.clip(cells_c, 0, kc - 1), axis=1)
@@ -302,7 +229,6 @@ def build_page_layout(codes, assign, dsq, codebooks, *, lp: int = 512,
     [N] f32 full reconstruction norms; codebooks [M, K, ds] f32.
     Returns dict of numpy arrays (see ivf_union_search docstring).
     """
-    from cvt_tpu.ops.pallas.adc_scan import _group_codebooks
     codes = np.asarray(codes, np.uint8)
     assign = np.asarray(assign)
     dsq = np.asarray(dsq, np.float32)
@@ -333,16 +259,11 @@ def build_page_layout(codes, assign, dsq, codebooks, *, lp: int = 512,
     nrm[rowids >= 0] -= dsq_min
 
     # decoded int8 residual rows straight from the quantized codebooks
-    # (the decode one-hot matmul picks exactly these entries)
-    cbt_q, srow, group = _group_codebooks(cb)
-    scales = np.asarray(srow).reshape(m, ds)
-    cb_q = np.clip(np.rint(cb / scales[:, None, :]),
-                   -127, 127).astype(np.int8)             # [M, K, ds]
-    dec8 = np.zeros((total_pg, d), np.int8)
-    dec8[dest] = np.concatenate(
-        [cb_q[mm][codes[order, mm]] for mm in range(m)],
-        axis=1) if n else 0
-    dec8_t = np.ascontiguousarray(dec8.T)                 # [D, N']
+    cb_q, srow = quantize_codebooks(cb)                   # [M, K, ds]
+    dec8 = np.zeros((total_pg, padded_dim(d)), np.int8)
+    if n:
+        dec8[dest, :d] = np.concatenate(
+            [cb_q[mm][codes[order, mm]] for mm in range(m)], axis=1)
     # int16 row-major decode for the exact phase-2 rescore (256x finer
     # quantization: |err| <= 0.5 * srow16 per dim ~ 1e-4 relative)
     scales16 = np.maximum(np.abs(cb).max(axis=1) / 32767.0, 1e-12)
@@ -359,6 +280,6 @@ def build_page_layout(codes, assign, dsq, codebooks, *, lp: int = 512,
         if padded[c]:
             seg_cell[starts[c] // seg:(starts[c] + padded[c]) // seg] = c
 
-    return dict(dec8_t=dec8_t, dec16=dec16, srow16=srow16,
+    return dict(dec8=dec8, dec16=dec16, srow16=srow16,
                 nrm_col=nrm[:, None], seg_cell=seg_cell, rowids=rowids,
                 srow=np.asarray(srow), dsq_min=dsq_min, lp=lp, seg=seg)

@@ -48,8 +48,8 @@ def chunked_topk_scan(q: jax.Array, db: jax.Array, k: int,
     """Exact top-k scan over a large database without a [B, N] intermediate.
 
     Scans `db` in chunks of `chunk` rows with lax.map; each chunk is one
-    MXU matmul + local top-k; chunk winners are merged at the end. This is
-    the TPU equivalent of the reference's single-thread scan loop
+    matmul + local top-k; chunk winners are merged at the end. This is
+    the batched equivalent of the reference's single-thread scan loop
     (brute_force_search/src/brutoforce.hpp:73-93) and the ground-truth
     generator for every recall harness (brute_force_search/README.md:3).
 

@@ -3,7 +3,7 @@
 The reference has NO multi-process/multi-node layer (SURVEY.md §2.5: no
 MPI/NCCL/Gloo anywhere — parallelism is OpenMP threads + AVX). This
 package is the new distributed surface required by BASELINE.json:
-database sharding over a TPU mesh with XLA collectives over ICI/DCN.
+database sharding over a device mesh with XLA collectives.
 """
 
 from cvt_tpu.parallel.mesh import make_mesh, cpu_mesh

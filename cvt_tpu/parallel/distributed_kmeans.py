@@ -3,9 +3,9 @@
 The reference trains its K=8192 coarse codebook with 64 OpenMP threads on
 one box (opq/train_codebook/train_PQ_codebook.cpp:157-164). Here one
 Lloyd step runs data-parallel over the mesh 'dp' axis: every device
-assigns its shard of the training set (an MXU matmul), computes partial
-one-hot sums/counts, and a psum over 'dp' reduces them — the TPU-native
-replacement for the OpenMP reduction, riding ICI.
+assigns its shard of the training set (one matmul), computes partial
+one-hot sums/counts, and a psum over 'dp' reduces them — the replacement
+for the OpenMP reduction, which XLA lowers to an NCCL all-reduce.
 """
 
 from __future__ import annotations
@@ -24,15 +24,17 @@ def _local_step(x, centroids, *, axis: str):
     c_sq = jnp.sum(jnp.square(centroids), axis=-1)
     d = (jnp.sum(jnp.square(x), axis=-1, keepdims=True)
          - 2.0 * jnp.matmul(x, centroids.T,
+                            precision=jax.lax.Precision.HIGHEST,
                             preferred_element_type=jnp.float32)
          + c_sq[None, :])
     assign = jnp.argmin(d, axis=-1)
     best = jnp.maximum(
         jnp.take_along_axis(d, assign[:, None], axis=-1)[:, 0], 0.0)
     onehot = jax.nn.one_hot(assign, k, dtype=jnp.float32)
-    sums = jnp.matmul(onehot.T, x, preferred_element_type=jnp.float32)
+    sums = jnp.matmul(onehot.T, x, precision=jax.lax.Precision.HIGHEST,
+                      preferred_element_type=jnp.float32)
     counts = jnp.sum(onehot, axis=0)
-    # ICI collective: reduce partial sums across the data-parallel axis
+    # reduce partial sums across the data-parallel axis
     sums = jax.lax.psum(sums, axis)
     counts = jax.lax.psum(counts, axis)
     obj = jax.lax.psum(jnp.sum(best), axis)

@@ -7,9 +7,9 @@ Axis convention (the framework's parallelism vocabulary):
          sharded along N here (the TP analogue); per-shard top-k results
          are merged with an all_gather over this axis.
 
-On a pod slice these map host-major so 'db' collectives ride ICI within
-a host before crossing DCN. On this one-chip dev box multi-device tests
-use the virtual CPU backend (xla_force_host_platform_device_count).
+Meshes are host-major, so 'db' collectives stay within a host before
+crossing hosts. Multi-device tests use the virtual CPU backend
+(xla_force_host_platform_device_count).
 """
 
 from __future__ import annotations

@@ -4,13 +4,13 @@ The new distributed surface (no reference counterpart — SURVEY.md §2.5):
 
   * the PQ code matrix [N, M] and per-point norms are sharded along N
     over the mesh's 'db' axis (NamedSharding);
-  * queries are replicated over 'db' (and optionally sharded over 'dp');
-  * each device scans its local shard with the same decode-first engine
-    as the single-chip path and extracts a LOCAL top-k with globalized
-    ids (shard offset from jax.lax.axis_index);
+  * queries are replicated over 'db';
+  * each device scans its local shard with the same packed scan as the
+    single-device path and extracts a LOCAL top-k with globalized ids
+    (shard offset from jax.lax.axis_index);
   * per-shard candidates are merged with an all_gather over 'db' — k*S
-    candidates per query, one final top-k. The collective rides ICI
-    within a slice; this replaces the NCCL/MPI role with XLA collectives.
+    candidates per query, one final top-k. XLA lowers the collective to
+    NCCL over NVLink; no hand-written communication.
 
 The whole step is one shard_map-ped jitted function; XLA overlaps the
 gather with the tail of the scan.
@@ -18,134 +18,55 @@ gather with the tail of the scan.
 
 from __future__ import annotations
 
-from functools import partial
-
 import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from cvt_tpu.index.flat_adc import _adc_scan
+from cvt_tpu.ops import backend
+from cvt_tpu.ops.pallas import adc_scan
 from cvt_tpu.ops.topk import merge_topk
 from cvt_tpu.quant.opq import OPQ
 from cvt_tpu.quant.pq import ProductQuantizer
 
 
-_BIG = np.float32(3.4e38)
+def shard_scan_operand(pq, codes, sharding):
+    """Per-shard operand of the packed scan from codes [Npad, M] u8
+    already placed with a row sharding: (dec [Npad, Dpad] int8, norm
+    [Npad] f32, srow [D]). Each device decodes its own rows."""
+    cb_q, srow = adc_scan.quantize_codebooks(pq.codebooks)
+    cb_q, srow = jnp.asarray(cb_q), jnp.asarray(srow)
+    row = NamedSharding(sharding.mesh, P(sharding.spec[0]))
+    dec = jax.jit(adc_scan.decode_int8, static_argnums=2,
+                  out_shardings=sharding)(codes, cb_q,
+                                          adc_scan.padded_dim(pq.dim))
+    norm = jax.jit(adc_scan.int8_row_norms, out_shardings=row)(
+        codes, cb_q, srow)
+    return dec, norm, srow
 
 
-def _local_pallas_topk(q, codes_t_l, cbt_q, srow, k, n_valid, tile_n, seg,
-                       group, interpret):
-    """Per-shard fused Pallas scan + local top-k (ids local to shard).
-
-    The production kernel in the shard_map body (VERDICT round-1 item 6):
-    codes_t_l [M, per] int32 is this shard's transposed code slice.
-    n_valid may be traced (per-shard row count under shard_map) — the
-    kernel masks invalid rows to BIG via its SMEM scalar. When the shard
-    has fewer segments than k, candidates are padded to k columns with
-    (BIG, 2^30) so the cross-shard merge shapes stay uniform.
-    """
-    from cvt_tpu.ops.pallas.adc_scan import (_adc_segmin, _fold_queries,
-                                             _unpack)
-    b = q.shape[0]
-    q_sq = jnp.sum(jnp.square(q), axis=-1)
-    q2s, qs = _fold_queries(q, srow)
-    s2 = (srow * srow)[:, None]
-    segpack, tiletop = _adc_segmin(q2s, qs, codes_t_l, cbt_q, s2, n_valid,
-                                   tile_n, seg, group, interpret)
-    # packed tile-top2 selection (mirrors adc_scan._adc_search_fast —
-    # no transposes or arg gathers; keys are exact (score, lane) ints)
-    n_tiles = tiletop.shape[0]
-    spt = tile_n // seg
-    kk = min(k, segpack.shape[0])
-    if 2 * n_tiles < kk or spt < 2:
-        neg, j = jax.lax.top_k(-segpack.T[:b], kk)
-        packed = -neg
-        score, lane = _unpack(packed, seg)
-        ids = j * seg + lane
-        d = score.astype(jnp.float32) * qs + q_sq[:, None]
-    else:
-        packs = jnp.concatenate([tiletop[:, 0, :], tiletop[:, 1, :]],
-                                axis=0)
-        rows = jnp.concatenate([tiletop[:, 2, :], tiletop[:, 3, :]],
-                               axis=0)
-        # f32 ranking keys: int32 top_k lowers to a ~10x slower sort
-        neg, j = jax.lax.top_k(-packs.astype(jnp.float32).T[:b], kk)
-        tile = jnp.where(j < n_tiles, j, j - n_tiles)
-        rowint = jnp.take_along_axis(rows.T[:b], j, axis=-1)
-        ids = tile * tile_n + rowint
-        d = (-neg / seg) * qs + q_sq[:, None]
-    if kk < k:
-        d = jnp.pad(d, ((0, 0), (0, k - kk)), constant_values=_BIG)
-        ids = jnp.pad(ids, ((0, 0), (0, k - kk)),
-                      constant_values=np.int32(2 ** 30))
-    return d, ids
-
-
-def _local_scan(q, q_sq, codes, dec_sq, codebooks, *, k, chunk, n_local,
-                axis: str):
-    """Per-shard body: local ADC scan + id globalization + gather-merge."""
-    d, i = _adc_scan(q, q_sq, codes, dec_sq, codebooks, k, chunk, n_local)
-    shard = jax.lax.axis_index(axis)
-    i = i + shard * n_local
-    # gather all shards' candidates: [S*k] per query, then re-select.
-    d_all = jax.lax.all_gather(d, axis, axis=1)    # [B, S, k]
-    i_all = jax.lax.all_gather(i, axis, axis=1)
-    b = d.shape[0]
-    d_all = d_all.reshape(b, -1)
-    i_all = i_all.reshape(b, -1)
-    return merge_topk(d_all, i_all, k)
-
-
-def sharded_search_2d(mesh: Mesh, q, codes, dec_sq, codebooks, k: int, *,
-                      dp_axis: str = "dp", db_axis: str = "db",
-                      chunk: int = 2048):
-    """2D-parallel ADC search step over a ('dp', 'db') mesh.
-
-    Query batch sharded over `dp_axis` (query data parallelism), code
-    matrix sharded over `db_axis` (database tensor parallelism): each
-    device scans its code shard for its query shard, then candidates are
-    merged with an all_gather over `db_axis` only — the ICI collective
-    pattern of SURVEY.md §2.5. Results come back sharded over 'dp'.
-
-    q [B, D] sharded P(dp, None); codes [Npad, M] P(db, None);
-    dec_sq [Npad] P(db); codebooks replicated.
-    """
-    n_local = codes.shape[0] // mesh.shape[db_axis]
-
-    def body(qs, codes_l, dsq_l, cb):
-        q_sq = jnp.sum(jnp.square(qs), axis=-1)
-        d, i = _adc_scan(qs, q_sq, codes_l, dsq_l, cb, k,
-                         min(chunk, n_local), n_local)
-        i = i + jax.lax.axis_index(db_axis) * n_local
-        d_all = jax.lax.all_gather(d, db_axis, axis=1)
-        i_all = jax.lax.all_gather(i, db_axis, axis=1)
-        b_l = d.shape[0]
-        return merge_topk(d_all.reshape(b_l, -1), i_all.reshape(b_l, -1), k)
-
-    fn = jax.shard_map(
-        body, mesh=mesh,
-        in_specs=(P(dp_axis, None), P(db_axis, None), P(db_axis), P()),
-        out_specs=(P(dp_axis, None), P(dp_axis, None)),
-        check_vma=False,  # merged candidates are replicated over db
-    )
-    return fn(q, codes, dec_sq, codebooks)
+def shard_seg(per: int, seg: int, k: int) -> int:
+    """Segment size for a shard of `per` rows: enough segments for k
+    distinct local candidates."""
+    seg = min(seg, per)
+    while per // seg < k and seg > 8:
+        seg //= 2
+    return seg
 
 
 class ShardedADCSearcher:
     """Flat ADC scan sharded over a mesh 'db' axis.
 
     Queries are replicated across shards; the database is split evenly
-    (padded) along N. search() is one jitted shard_map step.
-
-    impl: 'pallas' runs the production fused kernel in every shard body
-    (interpret mode off-TPU); 'xla' the pure-XLA engine; 'auto' picks by
-    the MESH's device platform.
+    (padded) along N. search() is one jitted shard_map step running the
+    packed scan (cvt_tpu.ops.pallas.adc_scan.adc_search, k <= seg) in
+    every shard body, on the route cvt_tpu.ops.backend.scan_route picks
+    for the MESH's devices: the kernel on a GPU mesh, its plain XLA twin
+    on a CPU mesh; 'pallas' on a CPU mesh interprets the kernel.
     """
 
     def __init__(self, quantizer, mesh: Mesh, *, axis: str = "db",
-                 chunk: int = 16384, impl: str = "auto",
-                 tile_n: int = 1024, seg: int = 128):
+                 impl: str = "auto", seg: int = 128):
         if isinstance(quantizer, OPQ):
             self.pq = quantizer.pq
             self.rotation = quantizer.rotation
@@ -154,24 +75,12 @@ class ShardedADCSearcher:
             self.rotation = None
         else:
             raise TypeError(type(quantizer))
-        if impl not in ("auto", "xla", "pallas"):
-            raise ValueError(impl)
         self.mesh = mesh
         self.axis = axis
-        self.chunk = chunk
-        self.tile_n = tile_n
         self.seg = seg
-        self.impl = impl
-        self._codes = None
-        self._dec_sq = None
-        self._codes_t = None
+        self.route = backend.scan_route(mesh.devices, impl)
+        self._dec8 = None
         self._n = 0
-
-    def _resolve_impl(self) -> str:
-        if self.impl != "auto":
-            return self.impl
-        return ("pallas"
-                if self.mesh.devices.flat[0].platform == "tpu" else "xla")
 
     @property
     def n_shards(self) -> int:
@@ -182,123 +91,66 @@ class ShardedADCSearcher:
         if self.rotation is None:
             return x
         return jnp.matmul(x, self.rotation,
+                          precision=jax.lax.Precision.HIGHEST,
                           preferred_element_type=jnp.float32)
 
     def load(self, x=None, *, codes=None) -> None:
-        """Distribute the database: encode (if raw floats) and place the
-        code matrix shard-by-shard with a NamedSharding along 'db'."""
+        """Distribute the database: encode (if raw floats), place the
+        code matrix shard-by-shard with a NamedSharding along 'db', and
+        decode each shard into the scan operand on its own device."""
         if codes is None:
             codes = self.pq.encode(self._rotate(x))
         codes = np.asarray(codes, np.uint8)
         n = codes.shape[0]
         s = self.n_shards
         per = -(-n // s)
-        align = self.chunk
-        if self._resolve_impl() == "pallas":
-            align = max(align, self.tile_n, self.seg)
+        align = max(128, self.seg)
         per = -(-per // align) * align            # align each shard
         pad = per * s - n
         if pad:
             codes = np.concatenate(
                 [codes, np.zeros((pad, codes.shape[1]), np.uint8)], axis=0)
-        if self._resolve_impl() == "pallas":
-            # transposed int32 layout the kernel consumes, sublane-padded
-            lt = np.ascontiguousarray(codes.astype(np.int32).T)
-            m = lt.shape[0]
-            mpad = -(-m // 8) * 8
-            if mpad != m:
-                lt = np.concatenate(
-                    [lt, np.zeros((mpad - m, lt.shape[1]), np.int32)],
-                    axis=0)
-            self._codes_t = jax.device_put(
-                lt, NamedSharding(self.mesh, P(None, self.axis)))
-            from cvt_tpu.ops.pallas.adc_scan import _group_codebooks
-            self._cbt_q, self._srow, self._group = _group_codebooks(
-                self.pq.codebooks)
-        else:
-            cbn = np.asarray(self.pq.codeword_sqnorms())
-            dsq = cbn[np.arange(codes.shape[1])[None, :],
-                      codes.astype(np.int64)].sum(axis=1).astype(np.float32)
-            # padding rows carry an effectively-infinite norm so they can
-            # never win a top-k slot on any shard
-            if pad:
-                dsq[n:] = 3.4e38
-            sh = NamedSharding(self.mesh, P(self.axis, None))
-            sh1 = NamedSharding(self.mesh, P(self.axis))
-            self._codes = jax.device_put(codes, sh)
-            self._dec_sq = jax.device_put(dsq, sh1)
+        sh = NamedSharding(self.mesh, P(self.axis, None))
+        self._dec8, self._norm8, self._srow = shard_scan_operand(
+            self.pq, jax.device_put(codes, sh), sh)
         self._n = n
         self._per_shard = per
         self._search_fn = None
 
     def _build_search(self, k: int):
-        axis = self.axis
-        per = self._per_shard
-        chunk = min(self.chunk, per)
-        mesh = self.mesh
-        n = self._n
+        axis, per, n, route = self.axis, self._per_shard, self._n, self.route
+        seg = shard_seg(per, self.seg, k)
 
-        if self._resolve_impl() == "pallas":
-            tile_n = min(self.tile_n, per)
-            seg = min(self.seg, tile_n)
-            while per // seg < k and seg > 8:
-                seg //= 2
-            group = self._group
-            interpret = mesh.devices.flat[0].platform != "tpu"
+        def body(qr, dec_l, norm_l, srow):
+            start = jax.lax.axis_index(axis) * per
+            n_valid_l = jnp.clip(n - start, 0, per)
+            d, i = adc_scan.adc_search(qr, dec_l, norm_l, srow, k,
+                                       n_valid_l, seg=seg, route=route)
+            gid = jnp.where(i >= 0, i + start, -1)
+            d_all = jax.lax.all_gather(d, axis, axis=1)
+            i_all = jax.lax.all_gather(gid, axis, axis=1)
+            bl = d.shape[0]
+            return merge_topk(d_all.reshape(bl, -1),
+                              i_all.reshape(bl, -1), k)
 
-            def body(qr, codes_t_l, cbt_q, srow):
-                start = jax.lax.axis_index(axis) * per
-                n_valid_l = jnp.clip(n - start, 0, per)
-                d, i = _local_pallas_topk(qr, codes_t_l, cbt_q, srow, k,
-                                          n_valid_l, tile_n, seg, group,
-                                          interpret)
-                gid = i + start
-                d_all = jax.lax.all_gather(d, axis, axis=1)
-                i_all = jax.lax.all_gather(gid, axis, axis=1)
-                bl = d.shape[0]
-                return merge_topk(d_all.reshape(bl, -1),
-                                  i_all.reshape(bl, -1), k)
-
-            return jax.jit(jax.shard_map(
-                body, mesh=mesh,
-                in_specs=(P(), P(None, axis), P(), P()),
-                out_specs=(P(), P()),
-                check_vma=False,  # merged results replicated over 'db'
-            ))
-
-        @jax.jit
-        def searcher(q, codes, dec_sq, codebooks):
-            q_sq = jnp.sum(jnp.square(q), axis=-1)
-            fn = jax.shard_map(
-                partial(_local_scan, k=k, chunk=chunk, n_local=per,
-                        axis=axis),
-                mesh=mesh,
-                in_specs=(P(), P(), P(axis, None), P(axis), P()),
-                out_specs=(P(), P()),
-                check_vma=False,  # merged results replicated over 'db'
-            )
-            return fn(q, q_sq, codes, dec_sq, codebooks)
-
-        return searcher
+        return jax.jit(jax.shard_map(
+            body, mesh=self.mesh,
+            in_specs=(P(), P(axis, None), P(axis), P()),
+            out_specs=(P(), P()),
+            check_vma=False,  # merged results replicated over 'db'
+        ))
 
     def search(self, q, k: int):
         """q [B, D] raw space -> (dists [B, k], global ids [B, k]).
         Padding rows rank last only if real rows fill the top-k; ids >= n
         never appear for k <= n."""
-        if self._codes is None and self._codes_t is None:
+        if self._dec8 is None:
             raise RuntimeError("load() first")
         if self._search_fn is None or self._search_k != k:
             self._search_fn = self._build_search(k)
             self._search_k = k
-        qr = self._rotate(q)
-        # place replicated operands on the mesh
-        rep = NamedSharding(self.mesh, P())
-        qr = jax.device_put(qr, rep)
-        if self._resolve_impl() == "pallas":
-            d, i = self._search_fn(qr, self._codes_t, self._cbt_q,
-                                   self._srow)
-        else:
-            cb = jax.device_put(self.pq.codebooks, rep)
-            d, i = self._search_fn(qr, self._codes, self._dec_sq, cb)
+        # place the replicated queries on the mesh
+        qr = jax.device_put(self._rotate(q), NamedSharding(self.mesh, P()))
+        d, i = self._search_fn(qr, self._dec8, self._norm8, self._srow)
         # drop padding hits (only possible when k > per-shard valid rows)
-        return d, jnp.where(i < self._n, i, -1)
+        return d, jnp.where((i >= 0) & (i < self._n), i, -1)

@@ -11,7 +11,7 @@ non-parametric algorithm (Ge et al., CVPR'13) that subsumes it: alternate
     4. R <- Procrustes: U, _, Vt = svd(X^T Yhat); R = U @ Vt
 
 A permutation matrix is a special orthogonal R, so the reference's reorder
-trick is a point in this search space. All heavy steps are MXU matmuls;
+trick is a point in this search space. All heavy steps are matmuls;
 the SVD is a one-off [D, D] host-side solve per iteration.
 """
 
@@ -81,6 +81,7 @@ class OPQ:
 
     def rotate(self, x) -> jax.Array:
         return jnp.matmul(jnp.asarray(x, jnp.float32), self.rotation,
+                          precision=jax.lax.Precision.HIGHEST,
                           preferred_element_type=jnp.float32)
 
     def encode(self, x) -> jax.Array:
@@ -91,6 +92,7 @@ class OPQ:
         """codes -> reconstruction in the ORIGINAL space (R is orthogonal,
         so decode(c) @ R^T inverts the rotation)."""
         return jnp.matmul(self.pq.decode(codes), self.rotation.T,
+                          precision=jax.lax.Precision.HIGHEST,
                           preferred_element_type=jnp.float32)
 
     def lut(self, q, metric: str = "l2") -> jax.Array:

@@ -6,7 +6,7 @@ feature lines (train/src/train.cpp:30-63, e.g. 2048->256), a YAML model
 (pca_online/pca_utils.h:11-37) and the Python path `cv2.PCAProject` +
 L2 norm (py/pca_compute.py:41-45).
 
-TPU-native: covariance via one [D, N]x[N, D] MXU matmul, `jnp.linalg.eigh`
+Batched design: covariance via one [D, N]x[N, D] matmul, `jnp.linalg.eigh`
 for the eigenbasis, projection as a single matmul. Optional whitening goes
 beyond the reference (commonly paired with PCA in CBIR pipelines).
 """

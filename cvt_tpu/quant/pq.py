@@ -4,10 +4,10 @@ Reference: opq/train_codebook/train_PQ_codebook.cpp — M subquantizers
 trained with yael kmeans inside an OpenMP loop over subspaces (:199-244);
 encode = nearest codeword per subspace (opq/src/IVFOPQ.cpp:141-163).
 
-TPU-native design: the M subspace k-means runs are one `jax.vmap` over the
-subspace axis of cvt_tpu.ops.kmeans (every Lloyd step is a batched MXU
+Design: the M subspace k-means runs are one `jax.vmap` over the
+subspace axis of cvt_tpu.ops.kmeans (every Lloyd step is a batched
 matmul across all subspaces at once); encode is a single batched
-nearest-codeword assignment. Decode for the ADC scan is an MXU one-hot
+nearest-codeword assignment. Decode for the ADC scan is a one-hot
 matmul (see cvt_tpu.index.flat_adc) rather than a per-point LUT-gather —
 the factorization `onehot(codes) @ codebooks @ q^T` contracted decode-first
 costs 2*K*D per row instead of the CPU LUT loop's M adds + random gathers,
@@ -99,6 +99,7 @@ class ProductQuantizer:
         q = jnp.asarray(q, jnp.float32)
         qs = q.reshape(q.shape[0], self.m, self.ds)             # [B, M, ds]
         ip = jnp.einsum("bms,mks->bmk", qs, self.codebooks,
+                        precision=jax.lax.Precision.HIGHEST,
                         preferred_element_type=jnp.float32)
         if metric == "ip":
             return -ip

@@ -1,4 +1,4 @@
-"""Metric-learning training: ArcFace embedding training, TPU-native.
+"""Metric-learning training: ArcFace embedding training, batched.
 
 Reference: pytorch_arcloss/ — LMDB dataset tooling for ArcFace-style
 training (image2lmdb/{txt2lmdb.py,main.py,train_data_flow.py}). The

@@ -3,7 +3,7 @@
 Reference: pytorch_arcloss/ ships only the LMDB data plumbing for an
 ArcFace-style embedding trainer (image2lmdb/main.py builds the loader);
 the model/loss the plumbing feeds is the standard ArcFace head. Here the
-full capability is TPU-native: an MLP/linear encoder producing
+full capability is batched: an MLP/linear encoder producing
 L2-normalized embeddings, an angular-margin classification head, a
 jitted optax train step, and a data-parallel variant sharded over the
 'dp' mesh axis with parameters replicated — gradients are averaged by
@@ -119,7 +119,7 @@ def make_sharded_train_step(mesh: Mesh,
                             axis: str = "dp", scale: float = 30.0,
                             margin: float = 0.5):
     """Data-parallel train step: batch sharded on `axis`, params
-    replicated; XLA inserts the gradient all-reduce over ICI.
+    replicated; XLA inserts the gradient all-reduce.
 
     Returns step(state, x [B,D], y [B]) -> (state, loss) where B must be
     divisible by mesh.shape[axis].

@@ -2,7 +2,7 @@
 
 Reference: pytorch_arcloss/image2lmdb/{txt2lmdb.py,main.py,
 train_data_flow.py} — converts an ImageFolder txt listing into LMDB and
-feeds it to a DataLoader. TPU-native redesign: a single append-only
+feeds it to a DataLoader. Redesign: a single append-only
 record file with an offset table (one fseek+fread per record, no LMDB
 dependency), plus a batched, seeded-shuffle iterator that yields
 fixed-shape numpy batches ready for `jax.device_put` — batch-first and

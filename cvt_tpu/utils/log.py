@@ -3,7 +3,7 @@
 Reference: retrieval/vlindex/src/util/logging.h:37-64 (glog CHECK
 macros + the non-aborting CHECK_OPTION family used by every options
 Check() method) and util/cache.h (LRUCache keyed loader cache, used by
-FeatureMatcherCache). TPU-native stance: Python's logging module plays
+FeatureMatcherCache). Stance: Python's logging module plays
 glog's role with a glog-style line format; CHECK helpers raise instead
 of aborting (exceptions are the Python analogue of glog's FATAL) while
 the check_option family returns bool exactly like the reference's

@@ -2,6 +2,7 @@
 
 import jax
 import numpy as np
+import pytest
 
 from cvt_tpu.index import FlatADCIndex, FlatIndex, IVFADCIndex
 from cvt_tpu.quant import OPQ, ProductQuantizer
@@ -17,16 +18,20 @@ def _gt(base, queries, k=10):
 def test_flat_adc_matches_decoded_exact(sift_like):
     base, queries = sift_like
     pq = ProductQuantizer.train(jax.random.key(0), base, m=8, k=64, iters=10)
-    idx = FlatADCIndex(pq, chunk=1024, impl="xla")
+    idx = FlatADCIndex(pq, impl="xla")
     idx.add(base)
-    d, i = idx.search(queries, 10)
+    d, i = idx.search(queries, 10, exact=True)
 
     dec = np.asarray(pq.decode(pq.encode(base)))
     de, ie = _gt(dec, queries, 10)
-    # ADC scan == exact scan over decoded database (bf16 tolerance)
+    # ADC scan (float32 re-score of the packed scan's best segments) ==
+    # exact scan over the decoded database
     np.testing.assert_allclose(np.asarray(d), np.asarray(de),
                                rtol=5e-2, atol=0.5)
-    assert (np.asarray(i)[:, 0] == np.asarray(ie)[:, 0]).mean() > 0.9
+    # ids may differ only between rows of identical codes (exact ties)
+    codes = np.asarray(pq.encode(base))
+    top1 = codes[np.asarray(i)[:, 0]] == codes[np.asarray(ie)[:, 0]]
+    assert top1.all(1).mean() > 0.9
 
 
 def test_flat_adc_recall_vs_float(sift_like):
@@ -34,9 +39,11 @@ def test_flat_adc_recall_vs_float(sift_like):
     _, gt = _gt(base, queries, 1)
     pq = ProductQuantizer.train(jax.random.key(0), base, m=16, k=256,
                                 iters=10)
-    idx = FlatADCIndex(pq, chunk=1024, impl="xla")
+    idx = FlatADCIndex(pq, impl="xla")
     idx.add(base)
-    _, ids = idx.search(queries, 10)
+    # exact top-10 (float32 re-score): the fast path returns one row per
+    # 128-row segment, and this database has only 32 segments
+    _, ids = idx.search(queries, 10, exact=True)
     r10 = recall_at_k(np.asarray(ids), np.asarray(gt)[:, 0], k=10)
     assert r10 > 0.9, r10
 
@@ -202,8 +209,11 @@ def test_ivf_probe_chunking_equivalent(sift_like):
     assert np.array_equal(np.asarray(i1), np.asarray(i2))
 
 
-def test_ivf_search_fast_union_probe(sift_like):
-    """Union-probe Pallas scan (search_fast) vs the XLA probed engine:
+@pytest.mark.parametrize("impl", ["auto", "pallas"])
+def test_ivf_search_fast_union_probe(sift_like, impl):
+    """Union-probe packed scan (search_fast: plain XLA twin under 'auto'
+    on the CPU, the paged kernel interpreted under 'pallas') vs the XLA
+    probed engine:
     same nprobe semantics, near-identical distance profiles (phase-2
     rescores in f32 from the int16 cache), equivalent recall."""
     base, queries = sift_like
@@ -212,7 +222,7 @@ def test_ivf_search_fast_union_probe(sift_like):
     idx.train(jax.random.key(0), base[:2048], coarse_iters=6, pq_iters=6)
     idx.build(base)
     d_ref, i_ref = idx.search(queries, 10, nprobe=8)
-    d_f, i_f, dropped = idx.search_fast(queries, 10, nprobe=8)
+    d_f, i_f, dropped = idx.search_fast(queries, 10, nprobe=8, impl=impl)
     assert int(dropped) == 0
     d_ref, d_f = np.asarray(d_ref), np.asarray(d_f)
     rel = np.abs(d_f - d_ref) / np.maximum(d_ref, 1.0)
@@ -225,7 +235,8 @@ def test_ivf_search_fast_union_probe(sift_like):
         v = row[row >= 0]
         assert len(np.unique(v)) == len(v)
     # batch-union mode scans a superset of every query's lists
-    _, i_u, _ = idx.search_fast(queries, 10, nprobe=8, exact_probe=False)
+    _, i_u, _ = idx.search_fast(queries, 10, nprobe=8, exact_probe=False,
+                                impl=impl)
     r_u = recall_at_k(np.asarray(i_u), np.asarray(gt)[:, 0], k=10)
     assert r_u >= r_f - 0.02, (r_u, r_f)
 
@@ -242,3 +253,25 @@ def test_ivf_search_fast_save_load(tmp_path, sift_like):
     d2, i2, _ = idx2.search_fast(queries[:8], 5, nprobe=8)
     np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
     np.testing.assert_allclose(np.asarray(d1), np.asarray(d2), rtol=1e-5)
+
+
+def test_ivf_tail_respects_nprobe(sift_like):
+    """Entries that overflow their bucket into the tail are returned only
+    for queries that probe their cell, like bucketed entries."""
+    base, queries = sift_like
+    idx = IVFADCIndex(coarse_k=32, m=8, k=32, bucket_cap=16)
+    idx.train(jax.random.key(3), base[:2048], coarse_iters=5, pq_iters=5)
+    idx.build(base)                       # most rows spill into the tail
+    assert int((np.asarray(idx._tail_ids) >= 0).sum()) > base.shape[0] // 2
+    q = queries[:16]
+    _, ids = idx.search(q, 10, nprobe=2)
+    ids = np.asarray(ids)
+    assign = np.asarray(idx.encode_chunk(base)[0])
+    c = np.asarray(idx.centroids)
+    probes = np.argsort(((q[:, None, :] - c[None]) ** 2).sum(-1), 1)[:, :2]
+    for row, p in zip(ids, probes):
+        row = row[row >= 0]
+        assert len(row) and np.isin(assign[row], p).all()
+    _, ids_fast, _ = idx.search_fast(q, 10, nprobe=2)
+    for a, b in zip(ids, np.asarray(ids_fast)):
+        assert len(set(a[a >= 0]) ^ set(b[b >= 0])) <= 2

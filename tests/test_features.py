@@ -267,9 +267,9 @@ def test_affine_descriptor_sampling_property():
 @pytest.mark.slow
 def test_extract_operating_point_vmem():
     """The vlindex operating point compiles and runs at full scale:
-    first_octave=-1, K=2048 (>= the VMEM-feasibility bar), 640x480,
-    two orientations, RootSIFT (sift.h:44-113). On the TPU lane this
-    proves device feasibility; on CPU it proves the shapes trace."""
+    first_octave=-1, K=2048, 640x480, two orientations, RootSIFT
+    (sift.h:44-113). On the CPU it proves the shapes trace; chip_smoke.py
+    runs extraction at K=8192 on a GPU."""
     from cvt_tpu.io.datasets import procedural_images
     imgs = procedural_images(2, 480, 640, seed=11)
     out = extract_sift(imgs, max_features=2048, first_octave=-1,

@@ -12,12 +12,10 @@ from cvt_tpu.parallel import (MultiHostADCServer, QueryBatcher,
                               init_distributed, serving_mesh)
 from cvt_tpu.quant import OPQ, ProductQuantizer
 
-pytestmark = pytest.mark.skipif(
-    len(jax.devices("cpu")) < 8, reason="needs 8 virtual CPU devices")
-
-
 @pytest.fixture(scope="module")
 def served():
+    if len(jax.devices("cpu")) < 8:
+        pytest.skip("needs 8 virtual CPU devices")
     rng = np.random.default_rng(7)
     base = rng.normal(size=(3000, 64)).astype(np.float32) * 20
     queries = rng.normal(size=(64, 64)).astype(np.float32) * 20
@@ -29,21 +27,25 @@ def served():
     return pq, base, queries, np.asarray(d_r), np.asarray(i_r)
 
 
-def _server(pq, base, merge, tile_n=128, seg=128):
+def _server(pq, base, merge, seg=128, impl="auto"):
     mesh = serving_mesh(jax.devices("cpu")[:8])
-    srv = MultiHostADCServer(pq, mesh, merge=merge, tile_n=tile_n, seg=seg)
+    srv = MultiHostADCServer(pq, mesh, merge=merge, seg=seg, impl=impl)
     srv.load(base)
     return srv
 
 
-def test_init_distributed_single_process():
+def test_init_distributed_single_process(cpu_devices):
     assert init_distributed() == jax.process_index()
 
 
+@pytest.mark.parametrize("impl", ["auto", "pallas"])
 @pytest.mark.parametrize("merge", ["allgather", "ring"])
-def test_serve_parity(served, merge):
+def test_serve_parity(served, merge, impl):
+    """Plain XLA shard bodies ('auto' on the CPU mesh) and the kernel
+    interpreted in every shard ('pallas') against the XLA engine."""
     pq, base, queries, d_r, i_r = served
-    srv = _server(pq, base, merge)
+    srv = _server(pq, base, merge, impl=impl)
+    assert srv.route == {"auto": "xla", "pallas": "interpret"}[impl]
     d, i = srv.serve(queries, 10)
     # int8-quantized phase-1 scoring: top-1 must agree almost always,
     # distances within the quantization tolerance
@@ -79,7 +81,7 @@ def test_per_host_ingestion_contract(served):
     process owns every shard)."""
     pq, base, queries, d_r, i_r = served
     mesh = serving_mesh(jax.devices("cpu")[:8])
-    srv = MultiHostADCServer(pq, mesh, tile_n=128)
+    srv = MultiHostADCServer(pq, mesh)
     codes = srv.encode(base)
     start, stop, per = srv.shard_rows(base.shape[0])
     assert start == 0 and stop == base.shape[0]

@@ -4,6 +4,7 @@ pattern, SURVEY.md §4)."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from cvt_tpu.index import FlatIndex, FlatSQIndex
 from cvt_tpu.ops import l2_normalize
@@ -88,7 +89,7 @@ def test_sq_scan_matches_decoded_exact(sift_like):
     exact.add(dec)
     dq, iq = idx.search(qn, 10)
     de, ie = exact.search(qn, 10)
-    # distances agree to bf16 matmul tolerance (atol covers the TPU MXU
+    # distances agree to bf16 matmul tolerance (atol covers a device
     # bf16 accumulation path); top-1 ids essentially always
     np.testing.assert_allclose(np.asarray(dq), np.asarray(de),
                                rtol=5e-2, atol=5e-3)
@@ -126,9 +127,11 @@ def test_sq_save_load(tmp_path, sift_like):
     np.testing.assert_allclose(np.asarray(d1), np.asarray(d2), rtol=1e-6)
 
 
-def test_flat_sq_search_fast_parity(rng):
-    """Pallas search_fast agrees with the bf16 exact-rank scan: same
-    top-1 and near-identical distance profiles."""
+@pytest.mark.parametrize("impl", ["auto", "pallas"])
+def test_flat_sq_search_fast_parity(rng, impl):
+    """search_fast (plain XLA twin under 'auto' on the CPU, the kernel
+    interpreted under 'pallas') agrees with the bf16 exact-rank scan:
+    same top-1 and near-identical distance profiles."""
     import jax
     from cvt_tpu.index.flat_sq import FlatSQIndex
     from cvt_tpu.ops.linalg import l2_normalize
@@ -142,7 +145,7 @@ def test_flat_sq_search_fast_parity(rng):
     idx = FlatSQIndex(sq, chunk=2048)
     idx.add(base)
     d_ref, i_ref = idx.search(q, 10)
-    d_f, i_f = idx.search_fast(q, 10)
+    d_f, i_f = idx.search_fast(q, 10, impl=impl)
     d_ref, d_f = np.asarray(d_ref), np.asarray(d_f)
     top1 = (np.asarray(i_ref)[:, 0] == np.asarray(i_f)[:, 0]).mean()
     assert top1 >= 0.95, top1
